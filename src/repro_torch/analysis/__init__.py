@@ -1,0 +1,4 @@
+"""The `@hot_path` marker, copied from the reference package."""
+from .hotpath import hot_path, is_hot_path
+
+__all__ = ["hot_path", "is_hot_path"]
