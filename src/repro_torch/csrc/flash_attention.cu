@@ -66,7 +66,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os,
-                 int group, int S, int seq_len, int window, int causal, float scale) {
+                 int group, int S, int window, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 4;  // output columns per thread
   extern __shared__ float smem[];
@@ -96,8 +96,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   // kv tiles that can hold a live key for some row of this tile
-  const int kv_len = min(S, seq_len);
-  int t_end = (kv_len + BK - 1) / BK;
+  int t_end = (S + BK - 1) / BK;
   if (causal) t_end = min(t_end, min(q0 + BQ - 1, S - 1) / BK + 1);
   int t_begin = 0;
   if (window > 0) {
@@ -136,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < COLS; ++j) {
       const int kpos = k0 + l4 + 4 * j;
-      bool live = kpos < kv_len;
+      bool live = kpos < S;
       if (causal) live = live && kpos <= qi;
       if (window > 0) live = live && kpos > qi - window;
       s[j] = live ? s[j] * scale : NEG;
@@ -183,7 +182,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs,
                    Strides ks, Strides vs, Strides os, int B, int H, int K, int S,
-                   int seq_len, int window, int causal, cudaStream_t stream) {
+                   int window, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -192,7 +191,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), qs, ks, vs, os, H / K, S, seq_len, window, causal, scale);
+      static_cast<T*>(o), qs, ks, vs, os, H / K, S, window, causal, scale);
   return cudaGetLastError();
 }
 
@@ -207,21 +206,21 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int B, int H, int K, int S, int D, int seq_len, int window, int causal,
+    int B, int H, int K, int S, int D, int window, int causal,
     int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || seq_len > S) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, o, qs, ks, vs, os, B, H, K, S, seq_len, window, causal, st);
+    return (int)launch<float, 64>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window, causal, st);
   if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k, v, o, qs, ks, vs, os, B, H, K, S, seq_len, window, causal, st);
+    return (int)launch<float, 128>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window, causal, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, qs, ks, vs, os, B, H, K, S, seq_len, window,
+    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window,
                                           causal, st);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, qs, ks, vs, os, B, H, K, S, seq_len,
-                                           window, causal, st);
+    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window,
+                                           causal, st);
   return (int)cudaErrorInvalidValue;
 }

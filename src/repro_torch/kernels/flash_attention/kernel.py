@@ -2,8 +2,8 @@
 
 Replaces `repro/kernels/flash_attention/kernel.py::flash_attention_bhsd`
 (the Pallas TPU kernel; body `_flash_kernel`). Causal GQA attention with an
-fp32 online softmax, an optional sliding window, keys at or past `seq_len`
-masked, and rows with no live key stored as zeros.
+fp32 online softmax, an optional sliding window, keys past the ragged tail
+of S masked, and rows with no live key stored as zeros.
 
 Bound on an H100 SXM (published peaks, 700 W): the causal half of the
 score matrix needs 4 * D flops per live (query, key) pair, B * H * D *
@@ -48,7 +48,7 @@ def load() -> ctypes.CDLL:
         lib = load_library("flash_attention", ["flash_attention.cu"])
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -75,25 +75,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0,
-                         seq_len: int | None = None) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors q (B,S,H,D), k/v (B,S,K,D); keys at
-    or past `seq_len` (default S) are masked. Raises if the kernel cannot be
-    built or launched."""
+                         causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors q (B,S,H,D), k/v (B,S,K,D). Raises
+    if the kernel cannot be built or launched."""
     global launches
     _check(q, k, v)
     B, S, H, D = q.shape
     K = k.shape[2]
-    seq_len = S if seq_len is None else int(seq_len)
-    if not 0 < seq_len <= S:
-        raise ValueError(f"seq_len {seq_len} outside (0, {S}]")
     fn = load().flash_attention_fwd
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 B, H, K, S, D, seq_len, int(window), int(bool(causal)),
+                 B, H, K, S, D, int(window), int(bool(causal)),
                  _DTYPES[q.dtype], stream)
     launches += 1
     if err != 0:

@@ -29,5 +29,4 @@ def flash_attention(
     reference; the kernel's tiles are fixed at 64 rows."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window,
-                                       seq_len=q.shape[1])
+    return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window)

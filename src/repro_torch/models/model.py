@@ -1,4 +1,4 @@
-"""Decoder-only LM (dense and vlm families) in torch.
+"""Decoder-only LM (dense, vlm, ssm and hybrid families) in torch.
 
 Counterpart of `repro.models.model`. Parameters keep the reference's
 stacked-dict layout, `{"embed", "final_norm", "layers": {name: (L, ...)}}`
@@ -13,7 +13,9 @@ over layers is a Python loop over the layer axis. Entry points:
   prefill                         replay prefill through decode_step
   DecoderLM                       an nn.Module holding the parameters
 
-MoE, SSM, hybrid and enc-dec configs raise NotImplementedError.
+SSM layers are Mamba2 mixers (`ssm.py`); hybrid layers run attention and
+the mixer in parallel from the same input and average them. MoE and
+enc-dec configs raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,25 +28,20 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
 from .attention import attend_cached, cache_update, prefill_attention
 from .common import apply_rope, dense_init, embed_init, rms_norm, rope_angles, swiglu
+from .ssm import mamba2_mixer, mamba2_mixer_step, mixer_param_shapes
 
 Params = Dict[str, Any]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 6 (models/moe.py)",
-    "ssm": "ROADMAP queue 1 item 5 (ssd_scan with models/ssm.py)",
-    "hybrid": "ROADMAP queue 1 item 5 (ssd_scan with models/ssm.py)",
-    "encdec": "ROADMAP queue 1 (enc-dec cross-attention, with models/ssm.py's slice)",
+    "moe": "ROADMAP queue 1 (models/moe.py)",
+    "encdec": "ROADMAP queue 1 (enc-dec cross-attention)",
 }
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Only the dense and vlm families are ported."""
+    """The dense, vlm, ssm and hybrid families are ported."""
     if cfg.num_experts > 0:
         fam = "moe"
-    elif cfg.arch_type == "ssm":
-        fam = "ssm"
-    elif cfg.hybrid:
-        fam = "hybrid"
     elif cfg.is_encdec:
         fam = "encdec"
     else:
@@ -60,15 +57,20 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     D, H, K, Hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    s: Dict[str, tuple] = {
-        "ln1": (D,),
+    s: Dict[str, tuple] = {"ln1": (D,)}
+    if cfg.arch_type == "ssm":
+        s.update(mixer_param_shapes(cfg))
+        return s
+    s.update({
         "wq": (D, H * Hd),
         "wk": (D, K * Hd),
         "wv": (D, K * Hd),
         "wo": (H * Hd, D),
-    }
+    })
     if cfg.qkv_bias:
         s.update({"bq": (H * Hd,), "bk": (K * Hd,), "bv": (K * Hd,)})
+    if cfg.hybrid:
+        s.update(mixer_param_shapes(cfg))
     s["ln2"] = (D,)
     s.update({"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D)})
     return s
@@ -91,7 +93,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> Params:
     """Random parameters on `device` (CUDA unless the caller asks for the
     CPU): matrices Normal(0, fan_in**-0.5), embeddings Normal(0, 0.02),
-    norms ones, biases zeros. `gen` must live on that device. Drawn leaf by
+    norms ones, biases zeros, and the reference's Mamba2 values for the SSM
+    leaves (A_log = log(1..nheads), D = 1, dt_bias = -2, conv weights
+    Normal(0, 0.1), conv bias 0). `gen` must live on that device. Drawn leaf by
     leaf in sorted-key order; a torch generator does not give the
     reference's jax.random bits (tests convert the reference's parameters
     with `params_from_numpy` instead)."""
@@ -102,10 +106,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
     shapes = param_shapes(cfg)
 
     def mk(name: str, shape: tuple) -> torch.Tensor:
-        if name.startswith("ln") or name == "final_norm":
+        if name.startswith("ln") or name in ("final_norm", "ssm_norm", "ssm_D"):
             return torch.ones(shape, dtype=dtype, device=dev)
-        if name in ("bq", "bk", "bv"):
+        if name in ("bq", "bk", "bv", "ssm_conv_b"):
             return torch.zeros(shape, dtype=dtype, device=dev)
+        if name == "ssm_dt_bias":
+            return torch.full(shape, -2.0, dtype=dtype, device=dev)  # softplus ~ 0.12
+        if name == "ssm_A_log":
+            a0 = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=dev))
+            return a0.expand(shape).to(dtype).contiguous()
+        if name == "ssm_conv_w":
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+            return (w * 0.1).to(dtype)
         if name == "embed":
             return embed_init(gen, shape, dtype)
         return dense_init(gen, shape[-2], shape, dtype)
@@ -179,14 +191,33 @@ def _ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
     return out
 
 
-def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor):
-    """One layer over the whole sequence; returns (x, k, v)."""
+def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+                   collect_cache: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One layer over the whole sequence; returns (x, this layer's decode
+    cache, empty unless `collect_cache`)."""
+    cache: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.arch_type == "ssm":
+        y, st, conv_tail = mamba2_mixer(cfg, lp, h)
+        if collect_cache:
+            cache = {"ssm_state": st.float(), "conv_buf": conv_tail}
+        return x + y, cache
     q, k, v = _project_qkv(cfg, lp, h, positions)
     a = prefill_attention(q, k, v, window=cfg.sliding_window, use_pallas=cfg.use_pallas)
-    x = x + a.reshape(a.shape[0], a.shape[1], -1) @ lp["wo"]
+    attn = a.reshape(a.shape[0], a.shape[1], -1) @ lp["wo"]
+    if collect_cache:
+        if cfg.sliding_window > 0:
+            k, v = _ring_cache(k, cfg.sliding_window), _ring_cache(v, cfg.sliding_window)
+        cache.update({"k": k, "v": v})
+    mixed = attn
+    if cfg.hybrid:
+        y, st, conv_tail = mamba2_mixer(cfg, lp, h)
+        if collect_cache:
+            cache.update({"ssm_state": st.float(), "conv_buf": conv_tail})
+        mixed = 0.5 * (attn + y)  # Hymba-style parallel head fusion
+    x = x + mixed
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), k, v
+    return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), cache
 
 
 def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -206,7 +237,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
     positions = torch.arange(S, device=x.device)
     lp = params["layers"]
     for i in range(cfg.num_layers):
-        x, _, _ = _decoder_layer(cfg, _layer(lp, i), x, positions)
+        x, _ = _decoder_layer(cfg, _layer(lp, i), x, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x), {"lb_loss": zero, "z_loss": zero}
@@ -215,23 +246,23 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
 def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Serving prefill: one parallel pass over the prompt that RETURNS the
-    decode cache (per-layer K/V, in ring order under a sliding window) --
-    the PD-disaggregation elephant flow. Returns (last-token logits (B, V)
-    fp32, {"k", "v": (L, B, S or window, K, Hd)})."""
+    decode cache -- the PD-disaggregation elephant flow. Returns (last-token
+    logits (B, V) fp32, cache): per-layer "k", "v" (L, B, S or window, K,
+    Hd), in ring order under a sliding window, for attention layers;
+    "ssm_state" (L, B, nheads, headdim, N) fp32 and "conv_buf" (L, B,
+    conv-1, conv_dim) for Mamba2 layers."""
     _check_family(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)
     lp = params["layers"]
-    ks, vs = [], []
+    caches = []
     for i in range(cfg.num_layers):
-        x, k, v = _decoder_layer(cfg, _layer(lp, i), x, positions)
-        if cfg.sliding_window > 0:
-            k, v = _ring_cache(k, cfg.sliding_window), _ring_cache(v, cfg.sliding_window)
-        ks.append(k)
-        vs.append(v)
+        x, cache = _decoder_layer(cfg, _layer(lp, i), x, positions, collect_cache=True)
+        caches.append(cache)
     x_last = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return _logits(params, x_last)[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
+    stacked = {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
+    return _logits(params, x_last)[:, 0], stacked
 
 
 # ---------------------------------------------------------------------------
@@ -240,20 +271,42 @@ def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zeroed decode caches, laid out as the reference's `init_cache`; the
+    SSM state is fp32 whatever `dtype` is."""
     _check_family(cfg)
     L, K, Hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     W = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
     dev = default_device(device)
-    return {name: torch.zeros((L, batch, W, K, Hd), dtype=dtype, device=dev)
-            for name in ("k", "v")}
+    cache: Dict[str, torch.Tensor] = {}
+    if cfg.arch_type != "ssm":
+        for name in ("k", "v"):
+            cache[name] = torch.zeros((L, batch, W, K, Hd), dtype=dtype, device=dev)
+    if cfg.arch_type == "ssm" or cfg.hybrid:
+        di, N = cfg.ssm_d_inner, cfg.ssm_state
+        cache["ssm_state"] = torch.zeros((L, batch, cfg.ssm_nheads, cfg.ssm_headdim, N),
+                                         dtype=torch.float32, device=dev)
+        cache["conv_buf"] = torch.zeros((L, batch, cfg.ssm_conv - 1, di + 2 * N),
+                                        dtype=dtype, device=dev)
+    return cache
+
+
+def _mixer_step(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                cache: Dict[str, torch.Tensor], i: int) -> torch.Tensor:
+    """Layer i's Mamba2 decode step; writes its conv buffer and state into
+    `cache` in place."""
+    y, new_buf, new_state = mamba2_mixer_step(
+        cfg, p, h, cache["conv_buf"][i], cache["ssm_state"][i])
+    cache["conv_buf"][i].copy_(new_buf)
+    cache["ssm_state"][i].copy_(new_state)
+    return y
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
                 token: torch.Tensor, pos: int
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for the whole (synchronized) batch: token (B, 1) at
-    position `pos`. Writes the new K/V into `cache` in place and returns
-    (logits (B, V) fp32, cache)."""
+    position `pos`. Writes the new K/V, conv buffers and SSM states into
+    `cache` in place and returns (logits (B, V) fp32, cache)."""
     _check_family(cfg)
     pos = int(pos)
     x = params["embed"][token.long()]
@@ -262,11 +315,17 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
     for i in range(cfg.num_layers):
         p = _layer(lp, i)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if cfg.arch_type == "ssm":
+            x = x + _mixer_step(cfg, p, h, cache, i)
+            continue
         q, k, v = _project_qkv(cfg, p, h, positions)
         k_cache, v_cache, valid = cache_update(
             cache["k"][i], cache["v"][i], k, v, pos, window=cfg.sliding_window)
         a = attend_cached(q, k_cache, v_cache, valid)
-        x = x + a.reshape(x.shape[0], 1, -1) @ p["wo"]
+        mixed = a.reshape(x.shape[0], 1, -1) @ p["wo"]
+        if cfg.hybrid:
+            mixed = 0.5 * (mixed + _mixer_step(cfg, p, h, cache, i))
+        x = x + mixed
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -276,8 +335,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt token by token through `decode_step` to build a decode
-    cache of width `max_len`. This replay never reaches the flash-attention
-    kernel."""
+    cache of width `max_len`. This replay reaches neither the
+    flash-attention kernel nor the SSD-scan kernel."""
     B, S = tokens.shape
     emb = params["embed"]
     cache = init_cache(cfg, B, max_len, dtype=emb.dtype, device=emb.device)

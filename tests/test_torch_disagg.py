@@ -1,10 +1,12 @@
 """The port's disaggregated server against the reference's, on the CPU.
 
-Same parameters (the reference's smoke qwen2-0.5b, crossed with
-`params_from_numpy`), same engine setup (`TentEngine(FabricSpec())`, as the
-reference's own disagg test builds it). The KV byte count, metas and the
+Same parameters (the reference's smoke qwen2-0.5b, mamba2-370m and
+hymba-1.5b, crossed with `params_from_numpy`), same engine setup
+(`TentEngine(FabricSpec())`, as the reference's own disagg test builds it). The KV byte count, metas and the
 virtual transfer time must be exactly equal, and so must the greedy tokens.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,14 +32,20 @@ ARCH = "qwen2-0.5b"
 N_NEW, MAX_LEN = 6, 32
 
 
-@pytest.fixture(scope="module")
-def setup():
-    ref_cfg = ref_smoke_config(ARCH).with_(remat="none")
-    cfg = get_smoke_config(ARCH).with_(remat="none")
+@functools.lru_cache(maxsize=None)
+def _setup(arch):
+    """Both packages' configs and parameters and one prompt, per arch."""
+    ref_cfg = ref_smoke_config(arch).with_(remat="none")
+    cfg = get_smoke_config(arch).with_(remat="none")
     ref_params = ref_models.init_params(ref_cfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, ref_params), device="cpu")
     prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, (1, 12), dtype=np.int32)
     return ref_cfg, ref_params, cfg, params, prompt
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(ARCH)
 
 
 def _reference_step_logits(ref_cfg, ref_params, prompt):
@@ -53,8 +61,11 @@ def _reference_step_logits(ref_cfg, ref_params, prompt):
 
 
 @pytest.mark.parametrize("async_handoff", [False, True])
-def test_disagg_matches_reference(setup, async_handoff):
-    ref_cfg, ref_params, cfg, params, prompt = setup
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-370m", "hymba-1.5b"])
+def test_disagg_matches_reference(arch, async_handoff):
+    """The cache is a dict of tensors whatever the family: K/V for qwen2,
+    {conv_buf, ssm_state} for mamba2, both for hymba."""
+    ref_cfg, ref_params, cfg, params, prompt = _setup(arch)
     # precondition: no near-tie in the reference's greedy choices, so equal
     # tokens are a fair demand on a float32 port
     for step in _reference_step_logits(ref_cfg, ref_params, prompt):

@@ -167,7 +167,7 @@ def test_init_params_defaults_to_cuda_and_never_follows_the_generator():
         models.init_params(cfg, gen, dtype=torch.float32)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b", "dbrx-132b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "seamless-m4t-medium"])
 def test_unported_families_raise(arch):
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
