@@ -9,10 +9,15 @@ Phases, one JSON line each on stdout:
            versions, TF32 switched off, and the time to build the kernels
            from src/repro_torch/csrc with nvcc into build/kernels/ (one nvcc
            per source, all started together).
-  kernels  every kernel of the paths (flash attention, SSD scan) against
-           its plain torch version on the card, at the serving shapes and
-           the reference's edge shapes, with times and bounds at the
-           serving shapes.
+  kernels  every kernel of the paths (flash attention, SSD scan, KV-page
+           pack and unpack) against its plain torch version on the card, at
+           the serving shapes and the reference's edge shapes, with times
+           and bounds at the serving shapes. The KV-page kernels are held
+           bit for bit, and their index checks must raise.
+  kv_path  the KV-page kernels' own entry points (`kv_pack`, `kv_unpack`),
+           which no other path of the system runs: qwen2-0.5b's per-layer
+           K|V pages gathered from one pool on the card into a transfer
+           buffer and scattered into a second pool.
   serve    one phase per model, full width, random f32 weights from a seed,
            served disaggregated: kernel prefill on node 0, the decode cache
            shipped through the TENT engine across a rail flap, greedy
@@ -23,6 +28,13 @@ Phases, one JSON line each on stdout:
              hymba-1.5b   B=2, 3072-token prompts, window 2048 (both)
   profile  device time by op (torch.profiler) over one prefill and eight
            decode steps of each model, and the device's busy share.
+  hicache  three-tier HiCache (GPU/CPU/disk pools of real bytes) for the
+           full-width qwen2-0.5b on the disagg_prefill_decode engine: two
+           4096-token conversations, the second demoting the first, which
+           is then fetched back up; the promoted bytes must be those inserted.
+  scenarios  the scenario runner over the 25-scenario library with its
+           declared expectations (host work on the virtual clock); one line
+           per scenario, and any violation fails the run.
 
 Then a {"kernels": [...]} summary and, last, {"ok": true, "device": ...}.
 Any failed check raises and the script exits non-zero. Without a card it
@@ -45,16 +57,24 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import EngineConfig, FabricSpec, HealthConfig, NodeSpec, TentEngine  # noqa: E402
+from repro_torch.core import TentEngine  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ref, kv_unpack, kv_unpack_ref  # noqa: E402
+from repro_torch.kernels.kv_pack import kernel as kv_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.models import init_params, prefill_forward  # noqa: E402
+from repro_torch.scenarios import ScenarioRunner, get, names  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     DisaggregatedServer,
+    HiCache,
     bytes_to_tree,
     greedy_decode,
+    kv_bytes_per_token,
+    make_cpu_pool,
+    make_disk_pool,
+    make_gpu_pool,
     monolithic_generate,
     tree_to_bytes,
 )
@@ -74,13 +94,29 @@ SSD_SERVE_SHAPE = (4, 1024, 32, 64, 128, 128)  # mamba2-370m prefill below
 SSD_HYMBA_SHAPE = (2, 3072, 50, 64, 16, 128)  # hymba-1.5b prefill below
 SSD_TAIL_SHAPES = [(2, 100, 32, 64, 128, 128), (1, 200, 50, 64, 16, 128)]
 SSD_STATE_SHAPE = (2, 256, 8, 64, 128, 64)
+# KV pages: (num_pages, page_size, kv_dim, n). The reference's test shapes,
+# ragged rows (kv_dim 3; page size 5 takes the 2-byte path in bf16), one
+# page, and the whole pool in reverse order.
+KV_CHECK_SHAPES = [(32, 16, 128, 8), (64, 8, 256, 64), (40, 16, 3, 7), (40, 5, 3, 9),
+                   (33, 16, 128, 1), (64, 8, 256, "reverse")]
+# serving geometry, pool and buffer both far larger than the 50 MB L2:
+# qwen2-0.5b's per-layer K|V page (16 tokens x 2 kv heads x 64 x K,V) and
+# hymba-1.5b's (16 x 5 x 64 x 2)
+KV_QWEN2 = (131072, 16, 256, 8192)
+KV_HYMBA = (32768, 16, 640, 4096)
 
 # (arch, batch, prompt, new tokens); replay checks on 256-token prompts
 SERVES = [("qwen2-0.5b", 4, 1024, 32), ("mamba2-370m", 4, 1024, 32), ("hymba-1.5b", 2, 3072, 32)]
 REPLAY_PROMPT, REPLAY_NEW = 256, 16
 SEED = 0
+# HiCache: full-width qwen2-0.5b pages of 64 tokens (786,432 bytes) in the
+# reference example's three tiers, scaled to these pages
+HICACHE_TIERS, HICACHE_PAGE_TOKENS, HICACHE_CONVO = (64, 128, 256), 64, 4096
 
-COUNTERS = {"flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
+# kernel name -> (module, launch-count attribute)
+COUNTERS = {"flash_attention": (fa_kernel, "launches"), "ssd_scan": (ssd_kernel, "launches"),
+            "kv_pack": (kv_kernel, "pack_launches"), "kv_unpack": (kv_kernel, "unpack_launches")}
+LIBRARIES = (fa_kernel, ssd_kernel, kv_kernel)
 
 
 def emit(obj) -> None:
@@ -88,12 +124,12 @@ def emit(obj) -> None:
 
 
 def reset_launches() -> None:
-    for mod in COUNTERS.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in COUNTERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -165,8 +201,8 @@ def phase_env() -> dict:
     card = nvidia_smi()
     print(card, flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(COUNTERS)) as pool:  # one nvcc per source, in parallel
-        list(pool.map(lambda mod: mod.load(), COUNTERS.values()))
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source, in parallel
+        list(pool.map(lambda mod: mod.load(), LIBRARIES))
     build_s = time.perf_counter() - t0
     env = {
         "phase": "env",
@@ -246,17 +282,24 @@ def _flash_timing(shape, dtype, case, window=0):
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     bound, bound_by = flash_bound(B, S, H, K, D, dtype, window)
     if window:
-        lib = None  # SDPA takes no sliding window without an explicit mask
+        # SDPA has no window argument: the causal band goes in as a boolean mask
+        pos = torch.arange(S, device="cuda")
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
     else:
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    # not gated: how far the library call is from the plain version
+    lib_err = (library().transpose(1, 2).float()
+               - flash_attention_ref(q, k, v, causal=True, window=window).float()).abs().max()
     return {
         "shape": list(shape), "window": window,
         "kernel_ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=window),
                             iters=5),
-        "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
-        "max_abs_err": case["max_abs_err"],
+        "library_ms": cuda_ms(library), "library_max_abs_err": lib_err.item(),
+        "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"],
     }
 
 
@@ -272,9 +315,111 @@ def _ssd_timing(shape, dtype, case, inputs):
     }
 
 
+def kv_bound(n, page_bytes):
+    """Least time for moving n pages: each moved page read once and written
+    once, and the n int32 indices read once, at the card's memory rate; no
+    arithmetic. Returns (ms, bound_by)."""
+    return (2 * n * page_bytes + 4 * n) / HBM_BPS * 1e3, "bytes"
+
+
+def _kv_pool(shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _kv_indices(num_pages, n, gen):
+    """n distinct random pages (all pages in reverse for n="reverse"), int32."""
+    if n == "reverse":
+        return torch.arange(num_pages - 1, -1, -1, device="cuda", dtype=torch.int32)
+    return torch.randperm(num_pages, generator=gen, device="cuda")[:n].int()
+
+
+def _check_kv(shape, dtype, seed):
+    """Pack and unpack against their plain versions, bit for bit: the
+    gathered buffer, the scattered pool, unpack in place (same storage,
+    pages it does not name untouched), and a pack -> unpack round trip."""
+    num_pages, page, dim, n = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = _kv_pool((num_pages, page, dim), dtype, g)
+    idx = _kv_indices(num_pages, n, g)
+    buf = kv_pack(pool, idx)
+    want = kv_pack_ref(pool, idx)
+    dst = _kv_pool((num_pages, page, dim), dtype, g)
+    before, ptr = dst.clone(), dst.data_ptr()
+    out = kv_unpack(dst, buf, idx)
+    want_dst = kv_unpack_ref(before.clone(), buf, idx)
+    restored = kv_unpack(torch.zeros_like(pool), kv_pack(pool, idx), idx)
+    torch.cuda.synchronize()
+    untouched = torch.ones(num_pages, dtype=torch.bool, device="cuda")
+    untouched[idx.long()] = False
+    checks = {
+        "pack_equal": torch.equal(buf, want),
+        "unpack_equal": torch.equal(out, want_dst),
+        "unpack_in_place": out is dst and dst.data_ptr() == ptr,
+        "untouched_pages_equal": torch.equal(dst[untouched], before[untouched]),
+        "round_trip_equal": torch.equal(restored[idx.long()], pool[idx.long()]),
+    }
+    case = {"shape": [num_pages, page, dim, idx.numel()], "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": max((buf.float() - want.float()).abs().max().item(),
+                               (out.float() - want_dst.float()).abs().max().item()),
+            **checks}
+    if not all(checks.values()):
+        raise AssertionError(f"KV-page kernels disagree with their plain versions: {case}")
+    return case
+
+
+def _check_kv_refusals(dtype) -> dict:
+    """A page named twice raises ValueError and an index outside the pool
+    IndexError, for both kernels, and the pool is left as it was."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    pool = _kv_pool((16, 16, 128), dtype, g)
+    before = pool.clone()
+    seen = {}
+    for label, bad, err in (("repeated", [3, 5, 3], ValueError), ("past_end", [2, 16], IndexError),
+                            ("negative", [-1, 4], IndexError)):
+        idx = torch.tensor(bad, device="cuda")
+        buf = _kv_pool((len(bad), 16, 128), dtype, g)
+        for name, call in (("kv_pack", lambda: kv_pack(pool, idx)),
+                           ("kv_unpack", lambda: kv_unpack(pool, buf, idx))):
+            try:
+                call()
+            except err:
+                seen[f"{name}_{label}"] = err.__name__
+            else:
+                raise AssertionError(f"{name} took {label} indices {bad} without raising")
+    torch.cuda.synchronize()
+    if not torch.equal(pool, before):
+        raise AssertionError("a refused KV-page call changed the pool")
+    return seen
+
+
+def _kv_timing(shape, dtype, case):
+    """Kernel entry (indices already int32 on the card), the public wrapper
+    (with its index checks), and the plain version (one torch indexing call,
+    which is also the library yardstick), at a serving geometry."""
+    num_pages, page, dim, n = shape
+    g = torch.Generator(device="cuda").manual_seed(11)
+    pool = _kv_pool((num_pages, page, dim), dtype, g)
+    idx = _kv_indices(num_pages, n, g)
+    buf = kv_kernel.kv_pack(pool, idx)
+    bound, bound_by = kv_bound(n, page * dim * pool.element_size())
+    res = {}
+    for name, kern, wrapper, plain in (
+            ("kv_pack", lambda: kv_kernel.kv_pack(pool, idx), lambda: kv_pack(pool, idx),
+             lambda: kv_pack_ref(pool, idx)),
+            ("kv_unpack", lambda: kv_kernel.kv_unpack(pool, buf, idx),
+             lambda: kv_unpack(pool, buf, idx), lambda: kv_unpack_ref(pool, buf, idx))):
+        plain_ms = cuda_ms(plain)
+        res[name] = {"shape": list(shape), "page_bytes": page * dim * pool.element_size(),
+                     "kernel_ms": cuda_ms(kern), "wrapper_ms": cuda_ms(wrapper),
+                     "plain_ms": plain_ms, "library_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"]}
+    return res
+
+
 def phase_kernels() -> dict:
     reset_launches()  # this phase's launches: checks and timing only
     fa_cases, ssd_cases, timing = [], [], {"flash_attention": {}, "ssd_scan": {}}
+    kv_cases, timing["kv_pack"], timing["kv_unpack"], refusals = [], {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).removeprefix("torch.")
         case, _ = _check_case(SERVE_SHAPE, dtype, 0, seed=1)
@@ -293,6 +438,15 @@ def phase_kernels() -> dict:
         for shape in SSD_TAIL_SHAPES:
             ssd_cases.append(_check_ssd(shape, dtype, seed=5)[0])
         ssd_cases.append(_check_ssd(SSD_STATE_SHAPE, dtype, seed=6, with_state=True)[0])
+        for i, shape in enumerate(KV_CHECK_SHAPES):
+            kv_cases.append(_check_kv(shape, dtype, seed=20 + i))
+        refusals[dt] = _check_kv_refusals(dtype)
+        geometries = [("", KV_QWEN2)] + ([("_hymba", KV_HYMBA)] if dtype == torch.bfloat16 else [])
+        for suffix, shape in geometries:
+            case = _check_kv(shape, dtype, seed=30)
+            kv_cases.append(case)
+            for name, row in _kv_timing(shape, dtype, case).items():
+                timing[name][f"{dt}{suffix}"] = row
     for shape in EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             fa_cases.append(_check_case(shape, dtype, 0, seed=2)[0])
@@ -300,32 +454,66 @@ def phase_kernels() -> dict:
         fa_cases.append(_check_case(WINDOW_SHAPE, torch.float32, window, seed=3)[0])
     checks = read_launches()
     checked = []
-    for name, cases in (("flash_attention", fa_cases), ("ssd_scan", ssd_cases)):
+    for name, cases in (("flash_attention", fa_cases), ("ssd_scan", ssd_cases),
+                        ("kv_pack", kv_cases), ("kv_unpack", kv_cases)):
         checked.append({"name": name, "check_launches": checks[name], "cases": len(cases),
                         "max_abs_err": {dt: max(c["max_abs_err"] for c in cases
                                                 if c["dtype"] == dt)
                                         for dt in ("float32", "bfloat16")}})
-    res = {"phase": "kernels", "checked": checked, "timing": timing,
-           "cases": {"flash_attention": fa_cases, "ssd_scan": ssd_cases}}
+    res = {"phase": "kernels", "checked": checked, "timing": timing, "kv_refusals": refusals,
+           "cases": {"flash_attention": fa_cases, "ssd_scan": ssd_cases, "kv_pages": kv_cases}}
+    emit(res)
+    return res
+
+
+# ----------------------------------------------------------------------- kv_path
+def phase_kv_path() -> dict:
+    """The KV-page kernels' main path, their own entry points: qwen2-0.5b's
+    per-layer K|V pages (f32, as the serve phases run) named by a host-side
+    page table, gathered from a pool on the card into a transfer buffer and
+    scattered into a second pool; every count is set to 0 just before."""
+    num_pages, page, dim, n = KV_QWEN2
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    src = _kv_pool((num_pages, page, dim), torch.float32, g)
+    dst = torch.zeros_like(src)
+    rng = np.random.default_rng(SEED)
+    src_pages = rng.permutation(num_pages)[:n].astype(np.int32)
+    dst_pages = rng.permutation(num_pages)[:n].astype(np.int64)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    buf = kv_pack(src, src_pages)
+    out = kv_unpack(dst, buf, dst_pages)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    want = {"flash_attention": 0, "ssd_scan": 0, "kv_pack": 1, "kv_unpack": 1}
+    if launches != want:
+        raise AssertionError(f"the KV-page path launched {launches}, expected {want}")
+
+    moved = torch.equal(dst[torch.from_numpy(dst_pages).cuda()],
+                        src[torch.from_numpy(src_pages).long().cuda()])
+    rest = torch.ones(num_pages, dtype=torch.bool, device="cuda")
+    rest[torch.from_numpy(dst_pages).cuda()] = False
+    if not (out is dst and moved and not dst[rest].any()):
+        raise AssertionError("the KV-page path did not move exactly the named pages")
+    res = {"phase": "kv_path", "pool": [num_pages, page, dim], "pages": n,
+           "bytes_moved": 2 * n * page * dim * 4, "wall_ms": wall, "launches": launches,
+           "pages_equal": True}
     emit(res)
     return res
 
 
 # ------------------------------------------------------------------------- serve
 def build_engine() -> TentEngine:
-    """The engine `ScenarioRunner.build_engine` makes for the reference's
-    disagg_prefill_decode scenario: its two-node fabric (nic_bw 1 GB/s, the
-    rest TopologyParams defaults), EngineParams defaults, policy "tent",
-    seed 0. The rail flap is scheduled by the caller, over the KV flow."""
-    fabric = FabricSpec(n_nodes=2, node=NodeSpec(n_numa=2, n_gpus=8, n_nics=8),
-                        nic_bw=1e9, tcp_bw=3e9, has_nvlink=True, has_gpudirect=True,
-                        has_mnnvl=False, has_ub=False)
-    config = EngineConfig(
-        policy="tent", slice_bytes=64 * 1024, max_slices=64, max_inflight=256, gamma=0.05,
-        reset_interval=1.0, wave=True, candidate_cache=True, wave_complete=True,
-        wave_min=None, jit_core=False, calendar_queue=False,
-        health=HealthConfig(probe_interval=0.02, retry_limit=8))
-    return TentEngine(fabric, config=config, seed=SEED)
+    """The engine `ScenarioRunner.build_engine` makes for the
+    disagg_prefill_decode scenario (its fabric, engine knobs, policy "tent"
+    and seed), without the scenario's fault program: the rail flap is
+    scheduled by the caller, over the KV flow."""
+    spec = get("disagg_prefill_decode")
+    return TentEngine(spec.topology.to_fabric_spec(),
+                      config=spec.engine.to_engine_config("tent"), seed=spec.seed)
 
 
 def _engine_counters(engine: TentEngine) -> dict:
@@ -352,11 +540,11 @@ def decode_cache(cfg, cache: dict, max_len: int) -> dict:
 
 def expected_launches(cfg) -> dict:
     """Kernel launches of one prefill: one per attention layer and one per
-    Mamba2 layer."""
+    Mamba2 layer; serving moves no KV pages through the page kernels."""
     has_attn = cfg.arch_type != "ssm"
     has_ssm = cfg.arch_type == "ssm" or cfg.hybrid
     return {"flash_attention": cfg.num_layers if has_attn else 0,
-            "ssd_scan": cfg.num_layers if has_ssm else 0}
+            "ssd_scan": cfg.num_layers if has_ssm else 0, "kv_pack": 0, "kv_unpack": 0}
 
 
 def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int):
@@ -505,6 +693,81 @@ def phase_profile(cfg, params, prompts) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------- hicache
+def phase_hicache() -> dict:
+    """The reference example's HiCache section at full width: qwen2-0.5b
+    pages of 64 tokens in GPU/CPU/disk pools of real bytes on the
+    disagg_prefill_decode engine (its rail flap included). Two conversations
+    of 4096 tokens with seeded payloads; the second demotes the first down a
+    tier, which is then fetched back to the GPU tier. Every promoted page
+    must hold the bytes that were inserted."""
+    cfg = get_config("qwen2-0.5b")
+    engine, _ = ScenarioRunner(get("disagg_prefill_decode")).build_engine("tent")
+    page_bytes = kv_bytes_per_token(cfg) * HICACHE_PAGE_TOKENS
+    gpu, cpu, disk = HICACHE_TIERS
+    hc = HiCache(engine, cfg,
+                 gpu_pool=make_gpu_pool(engine, 0, 0, page_bytes=page_bytes, num_pages=gpu),
+                 cpu_pool=make_cpu_pool(engine, 1, page_bytes=page_bytes, num_pages=cpu),
+                 disk_pool=make_disk_pool(engine, 1, page_bytes=page_bytes, num_pages=disk),
+                 page_tokens=HICACHE_PAGE_TOKENS)
+    rng = np.random.default_rng(SEED)
+    convo_a = list(range(HICACHE_CONVO))
+    convo_b = list(range(10**6, 10**6 + HICACHE_CONVO))
+    n_bytes = HICACHE_CONVO // HICACHE_PAGE_TOKENS * page_bytes
+    pay_a = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    pay_b = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    t0 = time.perf_counter()
+    demote_a = hc.insert(convo_a, pay_a)
+    demote_b = hc.insert(convo_b, pay_b)
+    tiers_after_insert = hc.tier_counts()
+    fetch = hc.fetch_prefix(convo_a)
+    wall = (time.perf_counter() - t0) * 1e3
+    got = np.concatenate([p.pool.read_page(p) for p in fetch.pages])
+    if tiers_after_insert["gpu"] != gpu or sum(tiers_after_insert.values()) != 2 * gpu:
+        raise AssertionError(f"the second conversation did not demote the first: "
+                             f"{tiers_after_insert}")
+    if fetch.prefix_tokens != HICACHE_CONVO or fetch.promoted_pages == 0:
+        raise AssertionError(f"the first conversation was not fetched back: {fetch}")
+    if not np.array_equal(got, pay_a):
+        raise AssertionError("promoted pages do not hold the inserted bytes")
+    res = {"phase": "hicache", "arch": cfg.name, "kv_bytes_per_token": kv_bytes_per_token(cfg),
+           "page_tokens": HICACHE_PAGE_TOKENS, "page_bytes": page_bytes,
+           "pools_pages": {"gpu": gpu, "cpu": cpu, "disk": disk},
+           "host_bytes": page_bytes * (gpu + cpu + disk),
+           "demote_seconds": [demote_a, demote_b], "tiers_after_insert": tiers_after_insert,
+           "tiers_after_fetch": hc.tier_counts(), "promoted_pages": fetch.promoted_pages,
+           "fetch_virtual_seconds": fetch.transfer_seconds, "bytes_moved": fetch.bytes_moved,
+           "bytes_promoted": hc.bytes_promoted, "bytes_demoted": hc.bytes_demoted,
+           "hits": hc.hits, "misses": hc.misses, "promoted_bytes_equal": True,
+           "slices_retried": engine.slices_retried, "wall_ms": wall}
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------- scenarios
+def phase_scenarios() -> dict:
+    """Every library scenario through the port's scenario runner, with its
+    declared expectations; one line each. Any violation fails the run."""
+    t0 = time.perf_counter()
+    failed = {}
+    for name in names():
+        s0 = time.perf_counter()
+        report = ScenarioRunner(get(name)).run()
+        emit({"phase": "scenario", "scenario": name, "ok": report.ok,
+              "violations": report.violations, "wall_s": time.perf_counter() - s0,
+              "policies": {p: {"throughput": r.throughput, "recovery_ms": r.recovery_ms,
+                               "stall_ms": r.stall_ms, "retries": r.retries}
+                           for p, r in report.policies.items()}})
+        if report.violations:
+            failed[name] = report.violations
+    if failed:
+        raise AssertionError(f"scenario expectations violated: {failed}")
+    res = {"phase": "scenarios", "scenarios": len(names()), "violations": 0,
+           "wall_s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
 def _summary(name, source, replaces, launches, timing) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -520,6 +783,9 @@ def main() -> int:
     phase_env()
     kern = phase_kernels()
     launches = {name: {} for name in COUNTERS}
+    kv = phase_kv_path()  # counts its main path only
+    for name in ("kv_pack", "kv_unpack"):
+        launches[name]["kv_path"] = kv["launches"][name]
     for arch, batch, prompt_len, n_new in SERVES:
         serve, model = phase_serve(arch, batch, prompt_len, n_new)  # counts its main path only
         for name, n in serve["main_path_launches"].items():
@@ -528,6 +794,8 @@ def main() -> int:
         phase_profile(*model)
         del serve, model
         torch.cuda.empty_cache()
+    phase_hicache()
+    phase_scenarios()
     t = kern["timing"]  # the serving paths run in float32
     emit({"kernels": [
         _summary("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -536,6 +804,12 @@ def main() -> int:
         _summary("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:71",
                  launches["ssd_scan"], t["ssd_scan"]["float32"]),
+        _summary("kv_pack", "src/repro_torch/csrc/kv_pack.cu",
+                 "src/repro/kernels/kv_pack/kernel.py:29",
+                 launches["kv_pack"], t["kv_pack"]["float32"]),
+        _summary("kv_unpack", "src/repro_torch/csrc/kv_pack.cu",
+                 "src/repro/kernels/kv_pack/kernel.py:52",
+                 launches["kv_unpack"], t["kv_unpack"]["float32"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
