@@ -26,8 +26,12 @@ Phases, one JSON line each on stdout:
              qwen2-0.5b   B=4, 1024-token prompts (flash attention)
              mamba2-370m  B=4, 1024-token prompts (SSD scan)
              hymba-1.5b   B=2, 3072-token prompts, window 2048 (both)
+  serve_bf16  qwen2-0.5b the same way in bfloat16, the reference's default
+           parameter type (flash attention on the tensor cores), its
+           prefill held against an f32 evaluation of the same bf16 weights
+           no further than 1.5x the plain bf16 prefill is.
   profile  device time by op (torch.profiler) over one prefill and eight
-           decode steps of each model, and the device's busy share.
+           decode steps of each serve phase, and the device's busy share.
   hicache  three-tier HiCache (GPU/CPU/disk pools of real bytes) for the
            full-width qwen2-0.5b on the disagg_prefill_decode engine: two
            4096-token conversations, the second demoting the first, which
@@ -87,8 +91,10 @@ HBM_BPS = 3.35e12
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}  # tests/test_kernels.py:14-15
 SERVE_SHAPE = (4, 1024, 14, 2, 64)  # (B, S, H, K, D): qwen2-0.5b prefill below
 HYMBA_FLASH_SHAPE, HYMBA_WINDOW = (2, 3072, 25, 5, 64), 2048  # hymba-1.5b prefill
-EDGE_SHAPES = [(1, 200, 4, 2, 64), (1, 128, 4, 1, 128), (2, 256, 8, 2, 64)]
-WINDOW_SHAPE = (1, 256, 4, 2, 64)
+# the reference's edge shapes, and S = 200 with D = 128 (not a multiple of
+# the 64-key tile, the wide head's two column halves)
+EDGE_SHAPES = [(1, 200, 4, 2, 64), (1, 128, 4, 1, 128), (2, 256, 8, 2, 64), (1, 200, 4, 1, 128)]
+WINDOW_SHAPE = (1, 256, 4, 2, 64)  # windows 16 (inside one kv tile) and 64
 # SSD scan: (B, S, H, P, N, chunk)
 SSD_SERVE_SHAPE = (4, 1024, 32, 64, 128, 128)  # mamba2-370m prefill below
 SSD_HYMBA_SHAPE = (2, 3072, 50, 64, 16, 128)  # hymba-1.5b prefill below
@@ -105,8 +111,13 @@ KV_CHECK_SHAPES = [(32, 16, 128, 8), (64, 8, 256, 64), (40, 16, 3, 7), (40, 5, 3
 KV_QWEN2 = (131072, 16, 256, 8192)
 KV_HYMBA = (32768, 16, 640, 4096)
 
-# (arch, batch, prompt, new tokens); replay checks on 256-token prompts
-SERVES = [("qwen2-0.5b", 4, 1024, 32), ("mamba2-370m", 4, 1024, 32), ("hymba-1.5b", 2, 3072, 32)]
+# (arch, batch, prompt, new tokens, parameter type); replay checks on
+# 256-token prompts
+SERVES = [("qwen2-0.5b", 4, 1024, 32, torch.float32), ("mamba2-370m", 4, 1024, 32, torch.float32),
+          ("hymba-1.5b", 2, 3072, 32, torch.float32), ("qwen2-0.5b", 4, 1024, 32, torch.bfloat16)]
+# a bf16 kernel prefill's logits may lie at most this many times as far from
+# an f32 evaluation of the same bf16 weights as the plain bf16 prefill's do
+BF16_GATE = 1.5
 REPLAY_PROMPT, REPLAY_NEW = 256, 16
 SEED = 0
 # HiCache: full-width qwen2-0.5b pages of 64 tokens (786,432 bytes) in the
@@ -144,6 +155,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of `fn`: the kernels' own time summed by
+    torch.profiler (CUPTI) over `iters` calls after a warm one; no host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def wall_ms(fn):
@@ -293,12 +320,16 @@ def _flash_timing(shape, dtype, case, window=0):
     # not gated: how far the library call is from the plain version
     lib_err = (library().transpose(1, 2).float()
                - flash_attention_ref(q, k, v, causal=True, window=window).float()).abs().max()
+    kernel = lambda: flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+    # ms: back-to-back calls through the public wrapper, host work included
+    # (CUDA events); device_ms: the kernels alone (profiler)
     return {
-        "shape": list(shape), "window": window,
-        "kernel_ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
+        "shape": list(shape), "window": window, "kernel_ms": cuda_ms(kernel),
+        "kernel_device_ms": device_ms(kernel),
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=window),
                             iters=5),
-        "library_ms": cuda_ms(library), "library_max_abs_err": lib_err.item(),
+        "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+        "library_max_abs_err": lib_err.item(),
         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"],
     }
 
@@ -451,7 +482,8 @@ def phase_kernels() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             fa_cases.append(_check_case(shape, dtype, 0, seed=2)[0])
     for window in (16, 64):
-        fa_cases.append(_check_case(WINDOW_SHAPE, torch.float32, window, seed=3)[0])
+        for dtype in (torch.float32, torch.bfloat16):
+            fa_cases.append(_check_case(WINDOW_SHAPE, dtype, window, seed=3)[0])
     checks = read_launches()
     checked = []
     for name, cases in (("flash_attention", fa_cases), ("ssd_scan", ssd_cases),
@@ -547,11 +579,28 @@ def expected_launches(cfg) -> dict:
             "ssd_scan": cfg.num_layers if has_ssm else 0, "kv_pack": 0, "kv_unpack": 0}
 
 
-def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int):
+def _as_f32(params):
+    return {n: _as_f32(t) if isinstance(t, dict) else t.float() for n, t in params.items()}
+
+
+def prefill_distances(cfg, params, prompts, logits) -> tuple:
+    """How far a prefill's last-token logits lie from an f32 evaluation of
+    the same weights through the plain path (the yardstick), beside how far
+    the plain prefill in the weights' own type lies from it: (kernel,
+    plain), each a max-abs distance. For bf16 weights the second says how
+    much the type alone moves the logits."""
+    plain_cfg = cfg.with_(use_pallas=False)
+    want = prefill_forward(plain_cfg, _as_f32(params), prompts)[0]
+    plain = prefill_forward(plain_cfg, params, prompts)[0]
+    return ((logits.float() - want).abs().max().item(),
+            (plain.float() - want).abs().max().item())
+
+
+def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.float32):
     cfg = get_config(arch).with_(use_pallas=True, remat="none")
     max_len = prompt_len + n_new
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    params = init_params(cfg, gen, dtype=dtype, device="cuda")
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device="cuda")
     torch.cuda.synchronize()
     want = expected_launches(cfg)
@@ -617,6 +666,23 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int):
     steps["unshipped_decode"] = {"tokens_equal": True, "wall_ms": local_ms,
                                  "decode_tok_s": batch * n_new / (local_ms / 1e3)}
     del shipped, local_cache, cache
+    dt = str(dtype).removeprefix("torch.")
+    if dtype != torch.float32:
+        # 6'. accuracy, calibrated by the plain path in the same type
+        kernel_dist, plain_dist = prefill_distances(cfg, params, prompts, logits)
+        steps["accuracy"] = {"kernel_logits_max_abs_dist": kernel_dist,
+                             "plain_logits_max_abs_dist": plain_dist,
+                             "ratio": kernel_dist / plain_dist if plain_dist else None,
+                             "gate": BF16_GATE}
+        if not (np.isfinite(kernel_dist) and kernel_dist <= BF16_GATE * plain_dist):
+            raise AssertionError(f"{arch} {dt} kernel prefill is {kernel_dist} from the f32 "
+                                 f"yardstick, more than {BF16_GATE}x the plain prefill's "
+                                 f"{plain_dist}")
+        out = {"phase": f"serve_{dt.replace('float', 'f')}", "arch": arch, "batch": batch,
+               "prompt": prompt_len, "max_len": max_len, "new_tokens": n_new, "dtype": dt,
+               "main_path_launches": main_launches, "steps": steps}
+        emit(out)
+        return out, (cfg, params, prompts)
 
     # 6. plain prefill: logits and every cache leaf within 2e-3 of the kernel's
     plain_cfg = cfg.with_(use_pallas=False)
@@ -650,7 +716,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int):
         "tokens_compared": int(result.tokens.size),
     }
     out = {"phase": "serve", "arch": arch, "batch": batch, "prompt": prompt_len,
-           "max_len": max_len, "new_tokens": n_new, "dtype": "float32",
+           "max_len": max_len, "new_tokens": n_new, "dtype": dt,
            "main_path_launches": main_launches, "steps": steps}
     emit(out)
     return out, (cfg, params, prompts)
@@ -673,7 +739,9 @@ def _profiled(fn, top: int = 8) -> dict:
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
+    flash = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "device_busy_share": busy / wall,
+            "flash_attention_ms": flash, "flash_attention_share": flash / busy if busy else 0.0,
             "top": [{"kernel": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3} for e in rows[:top]]}
 
@@ -687,7 +755,8 @@ def phase_profile(cfg, params, prompts) -> dict:
     cache = decode_cache(cfg, kv, prompt_len + 9)
     decode = lambda: greedy_decode(cfg, params, cache, logits, prompt_len, 9)  # noqa: E731
     decode()
-    res = {"phase": "profile", "arch": cfg.name, "prefill": _profiled(prefill),
+    res = {"phase": "profile", "arch": cfg.name,
+           "dtype": str(params["embed"].dtype).removeprefix("torch."), "prefill": _profiled(prefill),
            "decode_8_steps": _profiled(decode)}
     emit(res)
     return res
@@ -786,17 +855,19 @@ def main() -> int:
     kv = phase_kv_path()  # counts its main path only
     for name in ("kv_pack", "kv_unpack"):
         launches[name]["kv_path"] = kv["launches"][name]
-    for arch, batch, prompt_len, n_new in SERVES:
-        serve, model = phase_serve(arch, batch, prompt_len, n_new)  # counts its main path only
+    for arch, batch, prompt_len, n_new, dtype in SERVES:
+        # counts its main path only
+        serve, model = phase_serve(arch, batch, prompt_len, n_new, dtype)
+        path = arch if dtype == torch.float32 else f"{arch}/{serve['dtype']}"
         for name, n in serve["main_path_launches"].items():
             if n:
-                launches[name][arch] = n
+                launches[name][path] = n
         phase_profile(*model)
         del serve, model
         torch.cuda.empty_cache()
     phase_hicache()
     phase_scenarios()
-    t = kern["timing"]  # the serving paths run in float32
+    t = kern["timing"]  # float32 rows; the kernels line above has every dtype and shape
     emit({"kernels": [
         _summary("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention/kernel.py:89",

@@ -1,35 +1,66 @@
 // Blockwise causal GQA flash attention (forward) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel
-// repro/kernels/flash_attention/kernel.py::flash_attention_bhsd.
+// repro/kernels/flash_attention/kernel.py::flash_attention_bhsd (body
+// `_flash_kernel`).
 //
 // Layout: q (B, S, H, D), k/v (B, S, K, D), o (B, S, H, D), read and written
-// through element strides (the last dimension must be contiguous), so the
-// caller needs no transpose and no padding. H % K == 0; the kv head of query
-// head h is h / (H / K).
+// through element strides (the last dimension contiguous, every row 16-byte
+// aligned), so the caller needs no transpose and no padding. H % K == 0; the
+// kv head of query head h is h / (H / K). D is 64 or 128.
 //
-// One block per (q tile of 64 rows, head, batch). Where the TPU runs the kv
-// blocks as a sequential grid axis with the running max/denominator/output
-// in VMEM scratch, here a loop inside the block walks the kv tiles from the
-// first to the last one that the causal mask and the window allow (the
-// Pallas kernel's `pl.when` skip), with the running state in registers:
+// Both bodies compute what the Pallas kernel does: causal attention with an
+// optional sliding window (kpos > qpos - window), keys past S masked, an fp32
+// online softmax (running max, denominator, output), kv tiles that the mask
+// and the window rule out skipped, and rows with no live key stored as exact
+// zeros (the reference's l == 0 guard). A row whose max is still -inf uses 0
+// as its reference, so exp(-inf - -inf) never happens. The softmax scale
+// D**-0.5 is folded with log2(e) into one exp2.
 //
-//   * 256 threads; row r of the q tile belongs to the 4 adjacent threads
-//     4r..4r+3 (one warp holds 8 rows), so row reductions are two shuffles.
-//   * Q, K and V tiles are staged in shared memory as fp32 (loads convert
-//     from the input type), rows padded by one word against bank conflicts.
-//   * S = Q K^T: each thread computes 16 of its row's 64 scores; the scale
-//     D**-0.5 is applied to the fp32 scores. Masked scores are -inf.
-//   * Online softmax in fp32. A row whose max is still -inf uses 0 as its
-//     reference, so exp(-inf - -inf) never happens; such a row keeps l = 0
-//     and acc = 0, and is stored as exact zeros (the reference's l == 0
-//     guard, kernel.py:85). Rows with a live key get the same softmax as the
-//     reference's -1e30 convention.
-//   * P goes through shared memory (each row only within its own warp);
-//     each thread accumulates D/4 output columns of its row.
+// Where the TPU runs the kv blocks as a sequential grid axis with the state
+// in VMEM scratch, here a loop inside the block walks the kv tiles. The grid
+// is (head, batch, q tile) with the q tiles taken in reverse, so under the
+// causal mask the heaviest tiles (the last rows, which visit the most kv
+// tiles) are scheduled first.
 //
-// No tensor cores, no TMA: this is the simple, correct first version. The
-// bound on H100 is in kernel.py's note beside the launch.
+// bfloat16: tensor cores.
+//   * A block is two consumer warpgroups (256 threads), each owning 64 q
+//     rows; both read the same K/V tiles of 64 keys.
+//   * S = Q K^T with `wgmma.mma_async.m64n64k16.f32.bf16.bf16`, Q and K from
+//     shared memory in the 128-byte-swizzled K-major layout the descriptors
+//     name (a row of 64 bf16 is 128 bytes; D = 128 is two such column
+//     halves). A bf16 x bf16 product is exact in fp32, so S matches the
+//     reference's upcast dot up to summation order.
+//   * The online softmax runs on the accumulator fragments in registers:
+//     each row lives in the 4 threads of a quad, so a row max or sum is two
+//     shuffles; the output is rescaled only when some row's max moved.
+//   * O += P V with a second wgmma: P is rounded to bf16 and fed from
+//     registers as the A operand (the accumulator layout of the first
+//     product is the register-A layout of the second); V's tile is the B
+//     operand, MN-major, with the transpose bit set. Rounding P to bf16 is
+//     the one rounding the reference does not make.
+//   * K/V tiles arrive by `cp.async` 16-byte copies (src_size 0 zero-fills
+//     the ragged tail) into a 3-stage ring, two tiles ahead of the one in
+//     use, so the copies overlap the products. Each thread copies the same
+//     chunks of every tile, their offsets computed once. cp.async writes
+//     through the generic proxy; each thread fences to the async proxy
+//     before the barrier that hands a tile to wgmma. cp.async and not TMA:
+//     encoding a tensor map for every call would add host work to every launch, and
+//     the copies are not what bounds this kernel (its scalar softmax work
+//     is; PERF.md).
+//
+// float32: CUDA cores (TF32 stays off), register micro-tiles.
+//   * 256 threads per 64-row q tile; thread (ty, tx) owns rows ty + 16 i
+//     and keys tx + 16 j (i, j < 4) of S, and rows ty + 16 i by columns
+//     64 c + 4 tx .. +3 of O. Q, K, P and V are read as float4 from rows
+//     padded against bank conflicts: two vector loads per 16 FMAs.
+//   * A row's 64 scores live in the 16 lanes of a half-warp: a row max or
+//     sum is four shuffles. P goes through shared memory within the
+//     half-warp that wrote it.
+//   * K/V tiles are double-buffered with cp.async: tile t+1 is copied while
+//     tile t is computed.
+//
+// The bound on H100 is in kernel.py's note beside the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,168 +69,597 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr int COLS = BK / 4;  // scores per thread per kv tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, s, h;  // element strides of one tensor; the last dim is 1
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // sQ, sK: (64, D + 1); sV: (64, D); sP: (64, 65) -- all fp32
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+// ------------------------------------------------------------ async copies
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os,
-                 int group, int S, int window, int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 4;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * DP;
-  float* sV = sK + BK * DP;
-  float* sP = sV + BK * D;
+// 16-byte global -> shared copy; a row past the end (valid false) is
+// zero-filled and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / group;
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;  // q row within the tile
-  const int l4 = tid & 3;  // this thread's quarter of the row
-  const int qi = q0 + r;   // absolute q position
-  const float NEG = -INFINITY;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kh * ks.h;
-  const T* vb = v + b * vs.b + kh * vs.h;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int rr = i / D, d = i % D;
-    const int pos = q0 + rr;
-    sQ[rr * DP + d] = pos < S ? to_f32(qb[pos * qs.s + d]) : 0.f;
-  }
-
-  // kv tiles that can hold a live key for some row of this tile
-  int t_end = (S + BK - 1) / BK;
-  if (causal) t_end = min(t_end, min(q0 + BQ - 1, S - 1) / BK + 1);
-  int t_begin = 0;
+// kv tiles [begin, end) that hold a live key for some row of [q0, q_last]
+__device__ __forceinline__ void kv_range(int q0, int q_last, int S, int bk, int window,
+                                         int causal, int& begin, int& end) {
+  end = (S + bk - 1) / bk;
+  if (causal) end = min(end, q_last / bk + 1);
+  begin = 0;
   if (window > 0) {
     const int kmin = q0 - window + 1;  // smallest key row q0 can see
-    t_begin = kmin > 0 ? kmin / BK : 0;
-  }
-
-  float m = NEG, l = 0.f;
-  float acc[DC];
-#pragma unroll
-  for (int i = 0; i < DC; ++i) acc[i] = 0.f;
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K/V are consumed (and Q is staged)
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int rr = i / D, d = i % D;
-      const int pos = k0 + rr;
-      const bool in = pos < S;
-      sK[rr * DP + d] = in ? to_f32(kb[pos * ks.s + d]) : 0.f;
-      sV[rr * D + d] = in ? to_f32(vb[pos * vs.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[COLS];
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) s[j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qv = sQ[r * DP + d];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[j] += qv * sK[(l4 + 4 * j) * DP + d];
-    }
-
-    float mx = NEG;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int kpos = k0 + l4 + 4 * j;
-      bool live = kpos < S;
-      if (causal) live = live && kpos <= qi;
-      if (window > 0) live = live && kpos > qi - window;
-      s[j] = live ? s[j] * scale : NEG;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float m_ref = m_new == NEG ? 0.f : m_new;
-    const float corr = expf(m - m_ref);  // 0 while m is -inf
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const float p = expf(s[j] - m_ref);
-      rs += p;
-      sP[r * (BK + 1) + l4 + 4 * j] = p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = l * corr + rs;
-    m = m_new;
-    __syncwarp();  // row r's P is written and read by the same warp
-
-#pragma unroll
-    for (int i = 0; i < DC; ++i) acc[i] *= corr;
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float p = sP[r * (BK + 1) + c];
-      const float* vr = sV + c * D + l4;
-#pragma unroll
-      for (int i = 0; i < DC; ++i) acc[i] += p * vr[4 * i];
-    }
-    __syncwarp();  // P is read before the next tile overwrites it
-  }
-
-  if (qi < S) {
-    const float denom = l == 0.f ? 1.f : l;
-    T* ob = o + b * os.b + qi * os.s + h * os.h;
-#pragma unroll
-    for (int i = 0; i < DC; ++i) ob[l4 + 4 * i] = from_f32<T>(acc[i] / denom);
+    begin = kmin > 0 ? kmin / bk : 0;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides qs,
-                   Strides ks, Strides vs, Strides os, int B, int H, int K, int S,
-                   int window, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// 2^x in one MUFU instruction (exp2f adds range handling around it);
+// 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ bool key_live(int kpos, int qpos, int S, int window, int causal) {
+  return kpos < S && (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
+}
+
+// =================================================== bfloat16: wgmma path
+namespace wg {
+
+constexpr int BQ = 64;          // q rows per consumer warpgroup
+constexpr int WGS = 2;          // consumer warpgroups per block
+constexpr int ROWS = WGS * BQ;  // q rows per block
+constexpr int BK = 64;          // keys per kv tile
+constexpr int PF = 2;           // kv tiles in flight ahead of the one in use
+constexpr int STAGES = PF + 1;  // K/V ring
+constexpr int THREADS = 128 * WGS;
+
+template <int D>
+struct Smem {
+  static constexpr int Q_BYTES = ROWS * D * 2;
+  static constexpr int TILE_BYTES = BK * D * 2;  // one K or one V tile
+  static constexpr int BYTES = Q_BYTES + STAGES * 2 * TILE_BYTES + 1024;  // + alignment
+};
+
+// A thread's share of copying a (TILE_ROWS x D) bf16 tile into shared
+// memory. The tile is D/64 column halves of (TILE_ROWS x 64), each row 128 bytes with its
+// 16-byte chunks XOR-swizzled by row % 8 (the layout of a 128-byte-swizzle
+// wgmma descriptor). A thread copies the same chunks of every tile, so
+// their offsets are computed once.
+template <int D, int TILE_ROWS>
+struct Share {
+  static constexpr int CHUNKS = D / 8;  // 16-byte chunks a row
+  static constexpr int N = TILE_ROWS * CHUNKS / THREADS;
+  int row[N];        // row within the tile
+  long long off[N];  // element offset in the source: row * row_stride + column
+  uint32_t soff[N];  // byte offset in the tile
+
+  __device__ __forceinline__ Share(int tid, long long row_stride) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = tid + j * THREADS, r = i / CHUNKS, cc = i % CHUNKS;
+      row[j] = r;
+      off[j] = r * row_stride + cc * 8;
+      soff[j] = (cc / 8) * (TILE_ROWS * 128) + r * 128 + (((cc % 8) ^ (r % 8)) << 4);
+    }
+  }
+  // rows pos0 .. pos0 + TILE_ROWS - 1 of `src` (row pos0 at `at`); rows
+  // past S are zero-filled
+  __device__ __forceinline__ void copy(uint32_t dst, const __nv_bfloat16* src,
+                                       const __nv_bfloat16* at, int pos0, int S) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const bool valid = pos0 + row[j] < S;
+      cp_async16(dst + soff[j], valid ? at + off[j] : src, valid);
+    }
+  }
+};
+
+// shared-memory matrix descriptor, 128-byte swizzle; adding (bytes >> 4)
+// moves its start address
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory"); }
+
+// keep the compiler from touching these registers across an async wgmma
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// D (64 x 64, f32) += A (64 x 16, shared) * B (16 x 64, shared); both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) = A (64 x 16, shared) * B (16 x 64, shared); both K-major
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Online-softmax step on a score tile in registers: s[4c + 2r + e] is row
+// row0 + 8r, key k0 + 8c + col0 + e. Masks (when the tile needs it),
+// updates the running max m and denominator l, turns s into P (fp32) and
+// returns each row's correction of the running output (exactly 1 where the
+// max did not move).
+__device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l)[2],
+                                        float (&corr)[2], bool masked, int k0, int row0,
+                                        int col0, int S, int window, int causal, float sl2e) {
+  if (masked) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // live keys of this row, as columns of the tile: lo <= column <= hi
+      const int qpos = row0 + 8 * r;
+      const int hi = min(S - 1, causal ? qpos : S) - k0;
+      const int lo = window > 0 ? qpos - window + 1 - k0 : 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * c + col0 + e;
+          if (col < lo || col > hi) s[4 * c + 2 * r + e] = -INFINITY;
+        }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[4 * c + 2 * r], s[4 * c + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    const float m_ref = m_new == -INFINITY ? 0.f : m_new;
+    const float neg = -m_ref * sl2e;
+    corr[r] = m_new == m[r] ? 1.f : ex2(fmaf(m[r], sl2e, neg));  // 0 while m is -inf
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(s[4 * c + 2 * r + e], sl2e, neg));
+        s[4 * c + 2 * r + e] = p;
+        rs += p;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[r] = l[r] * corr[r] + rs;
+    m[r] = m_new;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+               Strides qs, Strides ks, Strides vs, Strides os, int group, int S,
+               int window, int causal, float sl2e) {
+  using SM = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sKV = base + SM::Q_BYTES;  // stage s: K at 2s, V at 2s + 1 tiles
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // heaviest first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kh = h / group;
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;                 // this thread's warpgroup
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int qw0 = q0 + wgi * BQ;             // first q row of the warpgroup
+  const int row0 = qw0 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+  const int col0 = 2 * (lane % 4);          // fragment column within 8
+
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
+
+  int t_begin, t_end;
+  kv_range(q0, min(q0 + ROWS, S) - 1, S, BK, window, causal, t_begin, t_end);
+  const Share<D, BK> kshare(tid, ks.s), vshare(tid, vs.s);
+  // the copy of kv tile t_begin + it into its stage, as one commit group
+  auto fetch = [&](int it) {
+    const int pos = (t_begin + it) * BK;
+    if (pos < t_end * BK) {
+      const uint32_t st = sKV + (it % STAGES) * 2 * SM::TILE_BYTES;
+      kshare.copy(st, kb, kb + pos * ks.s, pos, S);
+      vshare.copy(st + SM::TILE_BYTES, vb, vb + pos * vs.s, pos, S);
+    }
+    cp_async_commit();
+  };
+
+  // prologue: Q and the first PF kv tiles, one commit group each
+  {
+    const Share<D, ROWS> qshare(tid, qs.s);
+    qshare.copy(sQ, qb, qb + q0 * qs.s, q0, S);
+  }
+#pragma unroll
+  for (int i = 0; i < PF; ++i) fetch(i);
+
+  // descriptors: this warpgroup's Q rows, and K / V of stage 0 (K-major
+  // Q and K; V MN-major, its D halves BK * 128 bytes apart, its 8-key
+  // groups 1024)
+  const uint64_t dq = desc(sQ + wgi * (BQ * 128), 16, 1024);
+  const uint64_t dk = desc(sKV, 16, 1024);
+  const uint64_t dv = desc(sKV + SM::TILE_BYTES, BK * 128, 1024);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t pa[BK / 16][4];  // P in bf16 as the register A operand
+
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    cp_async_wait<PF - 1>();  // this thread's copies of tile t (and Q) have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // cp.async -> wgmma
+    __syncthreads();  // ... every thread's; and tile t - 1's stage is free
+    const int k0 = t * BK;
+    // does the tile hold a live key for this warpgroup's rows? (uniform)
+    const bool live = (!causal || k0 <= qw0 + BQ - 1) &&
+                      (window <= 0 || k0 + BK - 1 > qw0 - window);
+    const uint64_t dks = dk + (it % STAGES) * (2 * SM::TILE_BYTES / 16);
+    const uint64_t dvs = dv + (it % STAGES) * (2 * SM::TILE_BYTES / 16);
+    float s[32];
+    if (live) {
+      // S = Q K^T over D in steps of 16 (32 bytes along a 128-byte row; the
+      // second half of D = 128 is the next column half)
+      wg_fence();
+      wgmma_ss_n64_first(s, dq, dks);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n64(s, dq + ((kk / 4) * (ROWS * 128) + (kk % 4) * 32) / 16,
+                     dks + ((kk / 4) * (BK * 128) + (kk % 4) * 32) / 16);
+      wg_commit();
+    }
+    fetch(it + PF);
+    if (!live) continue;
+    wg_wait<0>();
+    hold(s);
+
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > qw0) ||
+                        (window > 0 && k0 <= qw0 + BQ - 1 - window);
+    float corr[2];
+    softmax(s, m, l, corr, masked, k0, row0, col0, S, window, causal, sl2e);
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[4 * c + 2 * r] *= corr[r];
+          acc[4 * c + 2 * r + 1] *= corr[r];
+        }
+    }
+    // P in bf16, one 16-key slice at a time
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+    // O += P V over the tile's keys, 16 at a time (16 rows of V = 2048 bytes)
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) pv<D>(acc, pa[kk], dvs + kk * (2048 / 16));
+    wg_commit();
+    wg_wait<0>();
+    hold(acc);
+    hold(pa);  // live and unchanged until the products that read them are done
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = l[r] == 0.f ? 1.f : l[r];
+    __nv_bfloat16* orow = o + b * os.b + (long long)row * os.s + h * os.h + col0;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * r] / denom, acc[4 * c + 2 * r + 1] / denom);
+  }
+}
+
+}  // namespace wg
+
+// ================================================= float32: CUDA-core path
+namespace f32 {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int THREADS = 256;
+constexpr int PP = BK + 16;  // P row pitch (floats): the two rows of a warp on other banks
+
+template <int D>
+struct Smem {
+  static constexpr int P = D + 4;  // Q/K/V row pitch (floats), 16-byte aligned
+  static constexpr int FLOATS = BQ * P + 2 * 2 * BK * P + BQ * PP;
+  static constexpr int BYTES = FLOATS * 4;
+};
+
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
+                                          int pos0, int S, int tid) {
+  constexpr int CHUNKS = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int i = tid; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, cc = i % CHUNKS;
+    const int pos = pos0 + r;
+    const bool valid = pos < S;
+    cp_async16(smem_u32(dst + r * Smem<D>::P + cc * 4),
+               src + (long long)(valid ? pos : 0) * row_stride + cc * 4, valid);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
+              Strides vs, Strides os, int group, int S, int window, int causal, float sl2e) {
+  constexpr int P = Smem<D>::P;
+  constexpr int NC = D / 64;  // column quads of O a thread owns
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sKV = sQ + BQ * P;  // buffer u: K at 2u, V at 2u + 1 tiles
+  float* sP = sKV + 2 * 2 * BK * P;
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kh = h / group;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
+
+  int t_begin, t_end;
+  kv_range(q0, min(q0 + BQ, S) - 1, S, BK, window, causal, t_begin, t_end);
+
+  load_tile<D, BQ>(sQ, qb, qs.s, q0, S, tid);
+  load_tile<D, BK>(sKV, kb, ks.s, t_begin * BK, S, tid);
+  load_tile<D, BK>(sKV + BK * P, vb, vs.s, t_begin * BK, S, tid);
+  cp_async_commit();
+
+  float acc[4][NC][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+
+  for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
+    if (t + 1 < t_end) {  // the next tile into the other buffer
+      float* nb = sKV + ((it + 1) % 2) * 2 * BK * P;
+      load_tile<D, BK>(nb, kb, ks.s, (t + 1) * BK, S, tid);
+      load_tile<D, BK>(nb + BK * P, vb, vs.s, (t + 1) * BK, S, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed for this thread
+    __syncthreads();     // ... for every thread
+    const float* sK = sKV + (it % 2) * 2 * BK * P;
+    const float* sV = sK + BK * P;
+    const int k0 = t * BK;
+
+    // S micro-tile: rows ty + 16 i, keys tx + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * P + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * P + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (!key_live(k0 + tx + 16 * j, q0 + ty + 16 * i, S, window, causal))
+            s[i][j] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_ref = m_new == -INFINITY ? 0.f : m_new;
+      const float neg = -m_ref * sl2e;
+      const float corr = ex2(fmaf(m[i], sl2e, neg));  // 0 while m is -inf
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ex2(fmaf(s[i][j], sl2e, neg));
+        sP[(ty + 16 * i) * PP + tx + 16 * j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off *= 2) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr;
+    }
+    __syncwarp();  // a row's P is written and read by one half-warp
+
+    // O micro-tile += P V: rows ty + 16 i, columns 64 c + 4 tx .. + 3
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(sP + (ty + 16 * i) * PP + kk);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float4 vv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          vv[e] = *reinterpret_cast<const float4*>(sV + (kk + e) * P + 64 * c + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe[4] = {pv[i].x, pv[i].y, pv[i].z, pv[i].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[i][c][0] = fmaf(pe[e], vv[e].x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(pe[e], vv[e].y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(pe[e], vv[e].z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(pe[e], vv[e].w, acc[i][c][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // tile t's buffer and P are consumed before they are rewritten
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    const float denom = l[i] == 0.f ? 1.f : l[i];
+    float* orow = o + b * os.b + (long long)row * os.s + h * os.h;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(orow + 64 * c + 4 * tx) =
+          make_float4(acc[i][c][0] / denom, acc[i][c][1] / denom, acc[i][c][2] / denom,
+                      acc[i][c][3] / denom);
+  }
+}
+
+}  // namespace f32
+
+// `configured` holds one bit per device on which the kernel's shared-memory
+// limit has been raised (the attribute is per device, and setting it costs
+// host time on every call, so it is set once).
+template <typename Kernel, typename T>
+cudaError_t launch(Kernel kernel, unsigned long long& configured, int smem, int rows_per_block,
+                   int threads, const void* q, const void* k, const void* v, void* o,
+                   Strides qs, Strides ks, Strides vs, Strides os, int B, int H, int K, int S,
+                   int D, int window, int causal, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), qs, ks, vs, os, H / K, S, window, causal, scale);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(configured >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << dev;
+  }
+  const float sl2e = (float)(1.0 / sqrt((double)D)) * LOG2E;
+  const dim3 grid(H, B, (S + rows_per_block - 1) / rows_per_block);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                          static_cast<const T*>(v), static_cast<T*>(o), qs, ks,
+                                          vs, os, H / K, S, window, causal, sl2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, (batch, seq,
-// head) for each of q, k, v, o; the head_dim stride must be 1. Returns a
-// cudaError_t (0 on success). Allocates nothing and does not synchronize.
+// head) for each of q, k, v, o; the head_dim stride must be 1 and every row
+// must start 16-byte aligned. Returns a cudaError_t (0 on success); a launch
+// the card refuses returns its error. Allocates nothing and does not
+// synchronize.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh,
@@ -212,15 +672,19 @@ extern "C" int flash_attention_fwd(
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  static unsigned long long configured[4] = {0, 0, 0, 0};
+#define FA_LAUNCH(i, T, KERNEL, SMEM, ROWS, THREADS)                                        \
+  return (int)launch<decltype(&KERNEL), T>(KERNEL, configured[i], SMEM, ROWS, THREADS, q, k, v, \
+                                           o, qs, ks, vs, os, B, H, K, S, D, window, causal, st)
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window, causal, st);
+    FA_LAUNCH(0, float, f32::flash_fwd_f32<64>, f32::Smem<64>::BYTES, f32::BQ, f32::THREADS);
   if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window, causal, st);
+    FA_LAUNCH(1, float, f32::flash_fwd_f32<128>, f32::Smem<128>::BYTES, f32::BQ, f32::THREADS);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window,
-                                          causal, st);
+    FA_LAUNCH(2, bf16, wg::flash_fwd_bf16<64>, wg::Smem<64>::BYTES, wg::ROWS, wg::THREADS);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, qs, ks, vs, os, B, H, K, S, window,
-                                           causal, st);
+    FA_LAUNCH(3, bf16, wg::flash_fwd_bf16<128>, wg::Smem<128>::BYTES, wg::ROWS, wg::THREADS);
+#undef FA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

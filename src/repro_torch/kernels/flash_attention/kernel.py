@@ -7,20 +7,25 @@ of S masked, and rows with no live key stored as zeros.
 
 Bound on an H100 SXM (published peaks, 700 W): the causal half of the
 score matrix needs 4 * D flops per live (query, key) pair, B * H * D *
-2 * S * (S + 1) flops in all. On the tensor cores in bf16 that takes
-flops / 989 TF/s; in f32 with TF32 off it runs on the CUDA cores at about
-67 TF/s. The bytes are q, k, v and o read or written once, at 3.35 TB/s.
-The larger time is the bound. At the serving shape (B=4, S=1024, H=14,
-K=2, D=64) the f32 call needs 7.5 GFLOP against 34 MB: operations bound
-it, at about 0.11 ms; in bf16 it is also operation-bound, at about 8 us.
+2 * S * (S + 1) flops in all; the bytes are q, k, v and o read or written
+once, at 3.35 TB/s. The larger time is the bound. At the serving shape
+(B=4, S=1024, H=14, K=2, D=64) the call needs 7.5 GFLOP against 34 MB in
+f32 (17 MB in bf16): operations bound it in both types.
 
-What the simple design does about it: it reads each K/V tile once per
-64-row q tile into shared memory and keeps the softmax state in
-registers, so device-memory traffic stays near the bound's bytes, and it
-skips the kv tiles the causal mask and the window rule out, so it does
-only the causal half's flops. It does them on the CUDA cores from shared
-memory (no wgmma, no TMA), so it cannot reach the bf16 tensor-core bound;
-wgmma with TMA-fed tiles is the way there.
+- bfloat16: 989 TF/s on the tensor cores, about 8 us. The design puts both
+  products on them with `wgmma` (S = Q K^T from shared memory, O += P V with
+  P from registers), keeps the online softmax on the accumulator fragments
+  in registers, and overlaps the `cp.async` copy of the next K/V tile with
+  the products of this one (a 3-stage ring). Two warpgroups of 64 q rows
+  share each K/V tile, which halves the tile traffic per row.
+- float32 (TF32 off): 67 TF/s on the CUDA cores, about 0.11 ms. The old
+  design's scalar shared loads (17 per 16 FMAs) set its pace; register
+  micro-tiles of 4 rows x 4 keys read as float4 make it two vector loads
+  per 16 FMAs, and K/V tiles are double-buffered with `cp.async`.
+
+Both skip the kv tiles the causal mask and the window rule out, so they do
+only the causal half's flops (plus the diagonal tiles' masked half), and
+take the heaviest q tiles first.
 """
 from __future__ import annotations
 
@@ -54,24 +59,38 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """Raise on what the kernel does not take; return q's, k's and v's data
+    pointers and (batch, seq, head) strides, each read once."""
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash attention kernel: q, k, v must be on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dt = q.dtype
+    if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError(f"expected q (B,S,H,D) and k, v (B,S,K,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, H, D = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if H % k.shape[2]:
-        raise ValueError(f"q heads {H} must be a multiple of kv heads {k.shape[2]}")
+                         f"{tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}")
+    B, S, H, D = qs
+    if ks[0] != B or ks[1] != S or ks[3] != D:
+        raise ValueError(f"k/v {tuple(ks)} do not match q {tuple(qs)}")
+    if H % ks[2]:
+        raise ValueError(f"q heads {H} must be a multiple of kv heads {ks[2]}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("the head_dim axis of q, k, v must be contiguous")
+    vec = 16 // q.element_size()  # the kernel copies rows in 16-byte pieces
+    ptrs, strides = [], []
+    for t in (q, k, v):
+        ptr, (sb, ss, sh, sd) = t.data_ptr(), t.stride()
+        if sd != 1:
+            raise ValueError("the head_dim axis of q, k, v must be contiguous")
+        if ptr % 16 or sb % vec or ss % vec or sh % vec:
+            raise ValueError("every row of q, k, v must start 16-byte aligned")
+        ptrs.append(ptr)
+        strides += (sb, ss, sh)
+    return ptrs, strides
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,17 +98,20 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the kernel on CUDA tensors q (B,S,H,D), k/v (B,S,K,D). Raises
     if the kernel cannot be built or launched."""
     global launches
-    _check(q, k, v)
+    ptrs, strides = _check(q, k, v)
     B, S, H, D = q.shape
-    K = k.shape[2]
     fn = load().flash_attention_fwd
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 B, H, K, S, D, int(window), int(bool(causal)),
-                 _DTYPES[q.dtype], stream)
+    out = torch.empty_like(q)  # a fifth of torch.empty's host time; its strides go along
+    args = (*ptrs, out.data_ptr(), *strides, *out.stride()[:3],
+            B, H, k.shape[2], S, D, int(window), int(bool(causal)), _DTYPES[q.dtype])
+    index = q.device.index
+    # the raw handle of the current stream (what torch.cuda.current_stream(index)
+    # .cuda_stream returns, without building a Stream object each call)
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     launches += 1
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")

@@ -26,7 +26,9 @@ def flash_attention(
     block_k: int = 128,
 ) -> torch.Tensor:
     """`block_q`/`block_k` are accepted for signature parity with the
-    reference; the kernel's tiles are fixed at 64 rows."""
+    reference; the kernel's tiles are fixed. bfloat16: blocks of 128 q rows
+    (two warpgroups of 64) over kv tiles of 64 keys in a 3-stage ring.
+    float32: blocks of 64 q rows over double-buffered kv tiles of 64 keys."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window)
