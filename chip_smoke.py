@@ -6,9 +6,10 @@
 Phases, one JSON line each on stdout:
 
   env      the card's name and power limit (nvidia-smi), torch and CUDA
-           versions, TF32 switched off, and the time to build the kernels
-           from src/repro_torch/csrc with nvcc into build/kernels/ (one nvcc
-           per source, all started together).
+           versions, TF32 switched off, the time to build the kernels from
+           src/repro_torch/csrc with nvcc into build/kernels/ (one nvcc per
+           source, all started together), and the HGMMA (wgmma)
+           instructions of each kernel in the built libraries' SASS.
   kernels  every kernel of the paths (flash attention, SSD scan, KV-page
            pack and unpack) against its plain torch version on the card, at
            the serving shapes and the reference's edge shapes, with times
@@ -26,10 +27,11 @@ Phases, one JSON line each on stdout:
              qwen2-0.5b   B=4, 1024-token prompts (flash attention)
              mamba2-370m  B=4, 1024-token prompts (SSD scan)
              hymba-1.5b   B=2, 3072-token prompts, window 2048 (both)
-  serve_bf16  qwen2-0.5b the same way in bfloat16, the reference's default
-           parameter type (flash attention on the tensor cores), its
-           prefill held against an f32 evaluation of the same bf16 weights
-           no further than 1.5x the plain bf16 prefill is.
+  serve_bf16  qwen2-0.5b and mamba2-370m the same way in bfloat16, the
+           reference's default parameter type (flash attention and the SSD
+           scan on the tensor cores), each prefill held against an f32
+           evaluation of the same bf16 weights no further than 1.5x the
+           plain bf16 prefill is.
   profile  device time by op (torch.profiler) over one prefill and eight
            decode steps of each serve phase, and the device's busy share.
   hicache  three-tier HiCache (GPU/CPU/disk pools of real bytes) for the
@@ -47,6 +49,7 @@ exits non-zero before printing anything. It needs one card.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -99,7 +102,11 @@ WINDOW_SHAPE = (1, 256, 4, 2, 64)  # windows 16 (inside one kv tile) and 64
 SSD_SERVE_SHAPE = (4, 1024, 32, 64, 128, 128)  # mamba2-370m prefill below
 SSD_HYMBA_SHAPE = (2, 3072, 50, 64, 16, 128)  # hymba-1.5b prefill below
 SSD_TAIL_SHAPES = [(2, 100, 32, 64, 128, 128), (1, 200, 50, 64, 16, 128)]
+# short prompts: S = 5 takes chunk 8 and S = 40 chunk 64 (the wrapper's rule)
+SSD_SHORT_SHAPES = [(2, 5, 32, 64, 128, 128), (2, 40, 50, 64, 16, 128)]
 SSD_STATE_SHAPE = (2, 256, 8, 64, 128, 64)
+# B and C rows 2N + 3 elements apart: not a multiple of 16 bytes in either type
+SSD_MISALIGNED_SHAPE, SSD_MISALIGNED_PAD = (2, 300, 8, 64, 128, 128), 3
 # KV pages: (num_pages, page_size, kv_dim, n). The reference's test shapes,
 # ragged rows (kv_dim 3; page size 5 takes the 2-byte path in bf16), one
 # page, and the whole pool in reverse order.
@@ -114,7 +121,8 @@ KV_HYMBA = (32768, 16, 640, 4096)
 # (arch, batch, prompt, new tokens, parameter type); replay checks on
 # 256-token prompts
 SERVES = [("qwen2-0.5b", 4, 1024, 32, torch.float32), ("mamba2-370m", 4, 1024, 32, torch.float32),
-          ("hymba-1.5b", 2, 3072, 32, torch.float32), ("qwen2-0.5b", 4, 1024, 32, torch.bfloat16)]
+          ("hymba-1.5b", 2, 3072, 32, torch.float32), ("qwen2-0.5b", 4, 1024, 32, torch.bfloat16),
+          ("mamba2-370m", 4, 1024, 32, torch.bfloat16)]
 # a bf16 kernel prefill's logits may lie at most this many times as far from
 # an f32 evaluation of the same bf16 weights as the plain bf16 prefill's do
 BF16_GATE = 1.5
@@ -128,6 +136,9 @@ HICACHE_TIERS, HICACHE_PAGE_TOKENS, HICACHE_CONVO = (64, 128, 256), 64, 4096
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "ssd_scan": (ssd_kernel, "launches"),
             "kv_pack": (kv_kernel, "pack_launches"), "kv_unpack": (kv_kernel, "unpack_launches")}
 LIBRARIES = (fa_kernel, ssd_kernel, kv_kernel)
+# the SSD scan's kernels in profiler names: ssd_chunk_state, ssd_state_pass,
+# ssd_chunk_scan, and in f32 ssd_chunk_cb
+SSD_PREFIX = "ssd_"
 
 
 def emit(obj) -> None:
@@ -157,9 +168,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time of one call of `fn`: the kernels' own time summed by
-    torch.profiler (CUPTI) over `iters` calls after a warm one; no host time."""
+def device_ms_by_kernel(fn, iters: int = 10, match: str = "") -> dict:
+    """Device time of one call of `fn` by kernel name: each kernel's own
+    time from torch.profiler (CUPTI) over `iters` calls after a warm one, no
+    host time. With `match`, only the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,8 +181,13 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key}
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of `fn`, all its kernels summed."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def wall_ms(fn):
@@ -221,6 +238,27 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def sass_hgmma(lib_path) -> dict:
+    """HGMMA (wgmma) instructions per kernel in a built library's SASS, by
+    cuobjdump from the toolkit that built it; kernels named as in the
+    source, with their template argument."""
+    from repro_torch.kernels.build import _nvcc
+
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            m = re.search(r"\d((?:ssd|flash)_\w+?)(?:ILi(\d+)E|E)", mangled)
+            func = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else mangled
+            counts[func] = 0
+        elif func and "HGMMA" in line:
+            counts[func] += 1
+    return counts
+
+
 # --------------------------------------------------------------------------- env
 def phase_env() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,8 +279,13 @@ def phase_env() -> dict:
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "kernel_build_s": build_s,
+        "sass_hgmma": {name: sass_hgmma(mod.load()._name)
+                       for name, mod in (("flash_attention", fa_kernel), ("ssd_scan", ssd_kernel))},
     }
     emit(env)
+    idle = [k for lib in env["sass_hgmma"].values() for k, n in lib.items() if "bf16" in k and not n]
+    if idle:
+        raise AssertionError(f"bf16 kernels without wgmma (no HGMMA in their SASS): {idle}")
     return env
 
 
@@ -275,28 +318,29 @@ def _check_case(shape, dtype, window, seed):
     return case, (q, k, v)
 
 
-def _ssd_inputs(shape, dtype, seed, with_state=False):
+def _ssd_inputs(shape, dtype, seed, with_state=False, bc_pad=8):
     """x (B,S,H,P) scaled by 0.5, a = -0.3|N(0,1)|, and B, C as strided
-    slices of one (B, S, 2N + 8) tensor, as the model slices them out of
-    its projection; the reference's kernel-test scales."""
+    slices of one (B, S, 2N + bc_pad) tensor, as the model slices them out
+    of its projection; the reference's kernel-test scales."""
     B, S, H, P, N, _ = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(B, S, H, P, generator=g, device="cuda") * 0.5).to(dtype)
     a = (-torch.randn(B, S, H, generator=g, device="cuda").abs() * 0.3).to(dtype)
-    bc = (torch.randn(B, S, 2 * N + 8, generator=g, device="cuda") * 0.5).to(dtype)
+    bc = (torch.randn(B, S, 2 * N + bc_pad, generator=g, device="cuda") * 0.5).to(dtype)
     s0 = torch.randn(B, H, P, N, generator=g, device="cuda") if with_state else None
     return x, a, bc[..., :N], bc[..., N:2 * N], s0
 
 
-def _check_ssd(shape, dtype, seed, with_state=False):
-    x, a, Bm, Cm, s0 = _ssd_inputs(shape, dtype, seed, with_state)
+def _check_ssd(shape, dtype, seed, with_state=False, bc_pad=8):
+    x, a, Bm, Cm, s0 = _ssd_inputs(shape, dtype, seed, with_state, bc_pad)
     y, fin = ssd_chunked(x, a, Bm, Cm, chunk=shape[5], initial_state=s0)
     y_ref, fin_ref = ssd_scan_ref(x, a, Bm, Cm, s0)
     torch.cuda.synchronize()
     ok_y, err_y = _agree(f"ssd scan y {shape} {dtype}", y, y_ref, dtype)
     ok_s, err_s = _agree(f"ssd scan state {shape} {dtype}", fin, fin_ref.to(dtype), dtype)
     case = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
-            "initial_state": with_state, "max_abs_err": max(err_y, err_s),
+            "initial_state": with_state, "bc_row_stride": Bm.stride(1),
+            "max_abs_err": max(err_y, err_s),
             "y_max_abs_err": err_y, "state_max_abs_err": err_s, "tol": TOL[dtype]}
     if not (ok_y and ok_s):
         raise AssertionError(f"ssd scan disagrees with its plain version: {case}")
@@ -337,9 +381,15 @@ def _flash_timing(shape, dtype, case, window=0):
 def _ssd_timing(shape, dtype, case, inputs):
     x, a, Bm, Cm, _ = inputs
     bound, bound_by = ssd_bound(*shape, dtype)
+    kernel = lambda: ssd_chunked(x, a, Bm, Cm, chunk=shape[5])  # noqa: E731
+    # ms: back-to-back calls through the public wrapper (CUDA events);
+    # device_ms: the SSD kernels alone (profiler), summed and one by one
+    by_kernel = device_ms_by_kernel(kernel, match=SSD_PREFIX)
     return {
         "shape": list(shape),
-        "kernel_ms": cuda_ms(lambda: ssd_chunked(x, a, Bm, Cm, chunk=shape[5])),
+        "kernel_ms": cuda_ms(kernel), "kernel_device_ms": sum(by_kernel.values()),
+        "kernel_device_ms_by_kernel": {re.search(r"ssd_\w+(?:<\d+>)?", k).group(0): v
+                                       for k, v in by_kernel.items()},
         "plain_ms": cuda_ms(lambda: ssd_scan_ref(x, a, Bm, Cm), iters=2, warmup=1),
         "library_ms": None,  # no single PyTorch call computes the SSD scan
         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"],
@@ -466,9 +516,11 @@ def phase_kernels() -> dict:
             key = dt if shape == SSD_SERVE_SHAPE else f"{dt}_hymba"
             timing["ssd_scan"][key] = _ssd_timing(shape, dtype, case, inputs)
             del inputs
-        for shape in SSD_TAIL_SHAPES:
+        for shape in SSD_TAIL_SHAPES + SSD_SHORT_SHAPES:
             ssd_cases.append(_check_ssd(shape, dtype, seed=5)[0])
         ssd_cases.append(_check_ssd(SSD_STATE_SHAPE, dtype, seed=6, with_state=True)[0])
+        ssd_cases.append(_check_ssd(SSD_MISALIGNED_SHAPE, dtype, seed=7,
+                                    bc_pad=SSD_MISALIGNED_PAD)[0])
         for i, shape in enumerate(KV_CHECK_SHAPES):
             kv_cases.append(_check_kv(shape, dtype, seed=20 + i))
         refusals[dt] = _check_kv_refusals(dtype)
@@ -740,8 +792,10 @@ def _profiled(fn, top: int = 8) -> dict:
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
     flash = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
+    ssd = sum(e.self_device_time_total for e in rows if SSD_PREFIX in e.key) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "device_busy_share": busy / wall,
             "flash_attention_ms": flash, "flash_attention_share": flash / busy if busy else 0.0,
+            "ssd_scan_ms": ssd, "ssd_scan_share": ssd / busy if busy else 0.0,
             "top": [{"kernel": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3} for e in rows[:top]]}
 

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Probe the SSD-scan and flash-attention kernels on one NVIDIA GPU.
+
+    python3 kernel_probe.py build            # nvcc -Xptxas -v: registers, spills, SASS HGMMA
+    python3 kernel_probe.py check float32    # SSD scan (and flash) against the plain versions
+    python3 kernel_probe.py check bfloat16
+    python3 kernel_probe.py time             # SSD and flash times, the SSD split by kernel
+
+A quicker loop than `chip_smoke.py` while a kernel is being changed: each
+mode is its own process, so a kernel that faults in `check` leaves the
+others able to run. `build` compiles into build/probe/ with the flags of
+`repro_torch.kernels.build` plus `-Xptxas -v` and counts the `HGMMA`
+instructions of each kernel in the library's SASS (cuobjdump). `check`
+holds the SSD scan against `ssd_scan_ref` at `chip_smoke.py`'s SSD shapes
+plus two odd ones (P = 40, N = 24, chunk 32 with an initial state; N = 100
+with B/C rows 2N + 1 apart), and flash attention at qwen2-0.5b's shape.
+`time` gives the CUDA-event time through the public wrapper and the
+profiler's device time of each kernel, at the mamba2-370m and hymba-1.5b
+serving shapes.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+WGMMA_SOURCES = ("ssd_scan", "flash_attention")
+
+
+def build() -> int:
+    from chip_smoke import sass_hgmma
+    from repro_torch.kernels.build import CSRC, NVCC_FLAGS, _nvcc
+
+    out = ROOT / "build" / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+
+    def one(name):
+        lib = out / f"{name}.so"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
+                               str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+        return name, proc, lib
+
+    with ThreadPoolExecutor(len(WGMMA_SOURCES)) as pool:
+        results = list(pool.map(one, WGMMA_SOURCES))
+    rc = 0
+    for name, proc, lib in results:
+        print(f"== {name}: nvcc exit {proc.returncode}")
+        log = (proc.stdout + proc.stderr).splitlines()
+        if proc.returncode:
+            rc = 1
+            print("\n".join(log[:80]))
+            continue
+        for line in log:
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "C7515", "warning")):
+                print("  " + line.strip()[:240])
+        for func, n in sass_hgmma(lib).items():
+            print(f"  HGMMA {n:4d} {func}")
+    return rc
+
+
+def check(dtype_name: str) -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    dtype = getattr(torch, dtype_name)
+    cases = ([(cs.SSD_SERVE_SHAPE, {}), (cs.SSD_HYMBA_SHAPE, {})]
+             + [(shape, {}) for shape in cs.SSD_TAIL_SHAPES + cs.SSD_SHORT_SHAPES]
+             + [(cs.SSD_STATE_SHAPE, {"with_state": True}),
+                (cs.SSD_MISALIGNED_SHAPE, {"bc_pad": cs.SSD_MISALIGNED_PAD}),
+                ((1, 77, 3, 40, 24, 32), {"with_state": True}),
+                ((1, 130, 2, 64, 100, 128), {"bc_pad": 1})])
+    bad = 0
+    for shape, kw in cases:
+        try:
+            case, _ = cs._check_ssd(shape, dtype, seed=5, **kw)
+            print("OK ", shape, kw, f"y {case['y_max_abs_err']:.3g} state "
+                  f"{case['state_max_abs_err']:.3g}", flush=True)
+        except AssertionError as err:
+            bad += 1
+            print("BAD", shape, kw, str(err)[:400], flush=True)
+    try:
+        case, _ = cs._check_case(cs.SERVE_SHAPE, dtype, 0, seed=1)
+        print("OK  flash", cs.SERVE_SHAPE, case["max_abs_err"])
+    except AssertionError as err:
+        bad += 1
+        print("BAD flash", err)
+    return 1 if bad else 0
+
+
+def time_kernels() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.nvidia_smi())
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in (cs.SSD_SERVE_SHAPE, cs.SSD_HYMBA_SHAPE):
+            x, a, Bm, Cm, _ = cs._ssd_inputs(shape, dtype, 4)
+            fn = lambda: cs.ssd_chunked(x, a, Bm, Cm, chunk=shape[5])  # noqa: E731
+            print(json.dumps({"shape": shape, "dtype": str(dtype), "ms": cs.cuda_ms(fn),
+                              "device_ms": cs.device_ms_by_kernel(fn),
+                              "bound": cs.ssd_bound(*shape, dtype)}), flush=True)
+        q, k, v = cs._qkv(cs.SERVE_SHAPE, dtype, 1)
+        fn = lambda: cs.flash_attention(q, k, v, causal=True)  # noqa: E731
+        print(json.dumps({"flash": str(dtype), "ms": cs.cuda_ms(fn),
+                          "device_ms": cs.device_ms(fn)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    mode = sys.argv[1] if len(sys.argv) > 1 else ""
+    if mode == "build":
+        sys.exit(build())
+    if mode == "check" and len(sys.argv) == 3:
+        sys.exit(check(sys.argv[2]))
+    if mode == "time":
+        sys.exit(time_kernels())
+    print(__doc__, file=sys.stderr)
+    sys.exit(2)

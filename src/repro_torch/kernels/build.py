@@ -2,9 +2,10 @@
 
 Each library is compiled on first use from the sources under
 `src/repro_torch/csrc/` into `build/kernels/` at the repository root, under
-a name keyed by a hash of the sources and the compiler flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. The sources
-expose plain C entry points; nothing here includes PyTorch's headers.
+a name keyed by a hash of the sources, every header under `csrc/` and the
+compiler flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. The sources expose plain C entry points; nothing
+here includes PyTorch's headers.
 """
 from __future__ import annotations
 
@@ -35,15 +36,23 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile `sources` (file names under csrc/) into one shared library,
-    unless a build of the same sources and flags exists, and load it."""
-    paths = [CSRC / s for s in sources]
+def library_path(name: str, sources: Sequence[str], csrc: Path = CSRC) -> Path:
+    """Where the build of `sources` (file names under csrc/) lives: a name
+    keyed by a hash of the sources, every `*.cuh` under csrc/ (included or
+    not) and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in [csrc / s for s in sources] + sorted(csrc.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    lib_path = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Compile `sources` (file names under csrc/) into one shared library,
+    unless a build of the same sources, headers and flags exists, and load
+    it."""
+    paths = [CSRC / s for s in sources]
+    lib_path = library_path(name, sources)
     key = str(lib_path)
     if key in _loaded:
         return _loaded[key]

@@ -7,6 +7,9 @@ function. With `use_pallas` set, the reference runs its Pallas kernels in
 interpret mode and the port its wrappers' plain versions. Tolerances: 2e-3
 in float32, 2e-2 in bfloat16 (the reference's own bar).
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -234,3 +237,42 @@ def test_init_cache_matches_reference_layout(arch):
         assert tuple(got[key].shape) == want[key].shape
         assert str(got[key].dtype).removeprefix("torch.") == want[key].dtype.name
         assert not torch.any(got[key].float() != 0)
+
+
+def _load(path):
+    spec = importlib.util.spec_from_file_location(f"{path.stem}_for_ssm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_mamba2_bf16_serving_gate_rehearsed_with_the_emulation(monkeypatch):
+    """chip_smoke.py's mamba2-370m serve_bf16 gate at smoke size on the CPU:
+    the kernel prefill (here the emulation of the three-phase bf16 kernel,
+    one call per Mamba2 layer) lies no further from an f32 evaluation of
+    the same bf16 weights than BF16_GATE times the plain bf16 prefill
+    does, and both distances are finite and nonzero."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    here = Path(__file__).resolve().parent
+    emu = _load(here / "test_torch_ssd_scan.py")
+    cs = _load(here.parent / "chip_smoke.py")
+    calls = []
+
+    def kernel(x, a, B_in, C_in, *, chunk=128, initial_state=None):
+        calls.append(x.dtype)
+        return emu.emulated_ssd_chunked(x, a, B_in, C_in, chunk=chunk,
+                                        initial_state=initial_state)
+
+    monkeypatch.setattr(ops, "ssd_chunked", kernel)
+    cfg = get_smoke_config("mamba2-370m").with_(use_pallas=True, remat="none")
+    params = models.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                                device="cpu")
+    prompts = torch.from_numpy(_tokens(0, cfg.vocab_size, s=64))
+    logits, cache = models.prefill_forward(cfg, params, prompts)
+    assert calls == [torch.bfloat16] * cfg.num_layers
+    assert cache["ssm_state"].dtype == torch.float32
+    kernel_dist, plain_dist = cs.prefill_distances(cfg, params, prompts, logits)
+    assert len(calls) == cfg.num_layers  # the yardstick and the plain prefill skip the kernel
+    assert np.isfinite(kernel_dist) and np.isfinite(plain_dist) and plain_dist > 0
+    assert kernel_dist <= cs.BF16_GATE * plain_dist, (kernel_dist, plain_dist)
