@@ -41,6 +41,33 @@ Phases, one JSON line each on stdout:
   scenarios  the scenario runner over the 25-scenario library with its
            declared expectations (host work on the virtual clock); one line
            per scenario, and any violation fails the run.
+  jit_core the engine's jitted core on the card (`EngineConfig.jit_core`):
+           its main path, a zero-jitter transfer of 64 slices over 8 rails
+           with the crossover forced to 1, must launch both kernels
+           (`tent_choose_wave_padded`, `tent_on_complete_many`); both held
+           bit for bit against their torch twins on the card and the numpy
+           twins on randomized padded inputs at buckets 8-1024, an
+           all-excluded wave, padding rows and the scratch row; the 13
+           library scenarios in which a kernel engages, with jit_core on,
+           equal their jit-off reports (the tests run all 25 on the CPU),
+           also with the crossover forced to 1 on three; a recorded run
+           turns the jitted core off with a warning and changes nothing;
+           times of both kernels, their plain versions, the numpy twins
+           and the adapter's round trip at buckets 32, 256 and 1024, taken
+           before the sweep's worker processes start; the 13 scenarios'
+           walls with jit_core off and on, taken after they end.
+  mc_sweep the Monte Carlo sweep (`MonteCarloSweep`, the `spray_sim`
+           kernel, one seed lane a thread) over the five scenarios of
+           BENCH_mc.json at 64 seeds and fault_jitter 0.25: every lane equal
+           to the plain torch sim on the card, seeds 0 and 1 equal to the
+           numpy twin (both in worker processes, which time nothing that is
+           reported), single_rail_flap's report equal to the CPU's, each
+           report ok, tent's throughput P50 within 2 % of BENCH_mc.json's.
+           Then, the workers ended: the flap's tent lanes against the plain
+           sim and one numpy lane, each timed; the five sweeps again, timed,
+           with the draws timed apart, their reports byte-equal to the
+           first pass's; a 4096-seed flap_storm sweep timed beside the
+           plain sim on the card.
 
 Then a {"kernels": [...]} summary and, last, {"ok": true, "device": ...}.
 Any failed check raises and the script exits non-zero. Without a card it
@@ -48,12 +75,16 @@ exits non-zero before printing anything. It needs one card.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import warnings
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -64,15 +95,38 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import TentEngine  # noqa: E402
+from repro_torch.core import EngineConfig, Fabric, FabricSpec, TelemetryStore, TentEngine  # noqa: E402
+from repro_torch.core import Topology, jit_core  # noqa: E402
+from repro_torch.core.jit_core import (  # noqa: E402
+    EngineJitCore,
+    _bucket,
+    make_draws,
+    simulate_spray_ref,
+    stack_draws,
+)
+from repro_torch.core.scheduler import (  # noqa: E402
+    tent_choose_wave,
+    tent_choose_wave_padded_torch,
+    tent_on_complete_many_torch,
+)
+from repro_torch.core.topology import LinkDesc  # noqa: E402
+from repro_torch.core.types import LinkClass, Location, MemoryKind  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ref, kv_unpack, kv_unpack_ref  # noqa: E402
 from repro_torch.kernels.kv_pack import kernel as kv_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.spray_sim import kernel as sim_kernel  # noqa: E402
+from repro_torch.kernels.spray_sim import spray_sim, spray_sim_ref  # noqa: E402
+from repro_torch.kernels.tent_core import kernel as tc_kernel  # noqa: E402
+from repro_torch.kernels.tent_core import ops as tc_ops  # noqa: E402
 from repro_torch.models import init_params, prefill_forward  # noqa: E402
-from repro_torch.scenarios import ScenarioRunner, get, names  # noqa: E402
+from repro_torch.obs import FlightRecorder  # noqa: E402
+from repro_torch.obs import events as OBS  # noqa: E402
+from repro_torch.obs.explain import replay_wave  # noqa: E402
+from repro_torch.scenarios import MonteCarloSweep, ScenarioRunner, get, names  # noqa: E402
+from repro_torch.scenarios.sweep import SWEEP_POLICIES, compile_spray_program  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     DisaggregatedServer,
     HiCache,
@@ -89,6 +143,7 @@ from repro_torch.serving import (  # noqa: E402
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12  # CUDA cores, TF32 off
+PEAK_F64 = 34e12  # CUDA cores
 HBM_BPS = 3.35e12
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}  # tests/test_kernels.py:14-15
@@ -97,6 +152,8 @@ HYMBA_FLASH_SHAPE, HYMBA_WINDOW = (2, 3072, 25, 5, 64), 2048  # hymba-1.5b prefi
 # the reference's edge shapes, and S = 200 with D = 128 (not a multiple of
 # the 64-key tile, the wide head's two column halves)
 EDGE_SHAPES = [(1, 200, 4, 2, 64), (1, 128, 4, 1, 128), (2, 256, 8, 2, 64), (1, 200, 4, 1, 128)]
+# head dims the kernel takes zero-padded: qwen2-0.5b-smoke's 56 (to 64), and 80 (to 128)
+PADDED_HEAD_SHAPES = [(2, 256, 8, 2, 56), (1, 200, 4, 2, 56), (1, 200, 4, 1, 80)]
 WINDOW_SHAPE = (1, 256, 4, 2, 64)  # windows 16 (inside one kv tile) and 64
 # SSD scan: (B, S, H, P, N, chunk)
 SSD_SERVE_SHAPE = (4, 1024, 32, 64, 128, 128)  # mamba2-370m prefill below
@@ -107,6 +164,10 @@ SSD_SHORT_SHAPES = [(2, 5, 32, 64, 128, 128), (2, 40, 50, 64, 16, 128)]
 SSD_STATE_SHAPE = (2, 256, 8, 64, 128, 64)
 # B and C rows 2N + 3 elements apart: not a multiple of 16 bytes in either type
 SSD_MISALIGNED_SHAPE, SSD_MISALIGNED_PAD = (2, 300, 8, 64, 128, 128), 3
+# the reference's own test shapes (tests/test_kernels.py:73-75 and :97), and
+# P = 128, which the wrapper splits into two kernel calls of 64 columns
+SSD_REF_SHAPES = [(1, 128, 2, 16, 32, 32), (1, 100, 2, 16, 32, 32), (1, 128, 2, 32, 64, 128),
+                  (2, 256, 4, 128, 64, 64)]
 # KV pages: (num_pages, page_size, kv_dim, n). The reference's test shapes,
 # ragged rows (kv_dim 3; page size 5 takes the 2-byte path in bf16), one
 # page, and the whole pool in reverse order.
@@ -134,11 +195,36 @@ HICACHE_TIERS, HICACHE_PAGE_TOKENS, HICACHE_CONVO = (64, 128, 256), 64, 4096
 
 # kernel name -> (module, launch-count attribute)
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "ssd_scan": (ssd_kernel, "launches"),
-            "kv_pack": (kv_kernel, "pack_launches"), "kv_unpack": (kv_kernel, "unpack_launches")}
-LIBRARIES = (fa_kernel, ssd_kernel, kv_kernel)
+            "kv_pack": (kv_kernel, "pack_launches"), "kv_unpack": (kv_kernel, "unpack_launches"),
+            "tent_choose_wave_padded": (tc_kernel, "choose_launches"),
+            "tent_on_complete_many": (tc_kernel, "drain_launches"),
+            "spray_sim": (sim_kernel, "launches")}
+LIBRARIES = (fa_kernel, ssd_kernel, kv_kernel, tc_kernel, sim_kernel)
+NO_LAUNCHES = {name: 0 for name in COUNTERS}
+# the jitted core and the sweep: where their checks run (the card)
+DEV = "cuda"
+FORCED_CROSSOVER = ("single_rail_flap", "elephant_mice_mix", "degrade_recover_ramp")
+# the library scenarios in which an engine kernel engages with the default
+# crossover (the chooser: 4-48 launches each; the drain in none), where the
+# jit-on pass runs on the card. The other twelve launch nothing, so the card
+# would run their numpy path twice; the CPU tests run all 25 with jit_core on.
+JIT_ENGAGING = ("ascend_ub_kv", "checkpoint_broadcast", "elephant_mice_mix",
+                "hetero_bandwidth_rails", "hicache_serve", "mnnvl_rack_kv",
+                "multi_tenant_contention", "numa_skew_incast", "serving_checkpoint_overlap",
+                "serving_closed_loop_flap", "serving_pd_handoff_incast",
+                "trainer_broadcast_fanout", "uniform_spray")
+JIT_BUCKETS = (32, 256, 1024)  # adapter round trip against the numpy path
+MC_SCENARIOS = ("single_rail_flap", "flap_storm", "correlated_outage", "degrade_recover_ramp",
+                "disagg_prefill_decode")  # the five of BENCH_mc.json
+MC_SEEDS, MC_JITTER, MC_NUMPY_SEEDS, MC_BAND = 64, 0.25, (0, 1), 0.02
+MC_BIG, MC_BIG_SCENARIO = 4096, "flap_storm"
+# worker processes of the mc_sweep phase: the plain sim on the card (one
+# process a sweep; it is bound by its host dispatch) and the numpy twin
+MC_WORKERS = 7
 # the SSD scan's kernels in profiler names: ssd_chunk_state, ssd_state_pass,
 # ssd_chunk_scan, and in f32 ssd_chunk_cb
 SSD_PREFIX = "ssd_"
+FLASH_NAME = "flash_fwd"  # flash_fwd_f32, flash_fwd_bf16
 
 
 def emit(obj) -> None:
@@ -169,25 +255,53 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms_by_kernel(fn, iters: int = 10, match: str = "") -> dict:
-    """Device time of one call of `fn` by kernel name: each kernel's own
-    time from torch.profiler (CUPTI) over `iters` calls after a warm one, no
-    host time. With `match`, only the kernels whose name holds it."""
+    """Device time of one call of `fn` by kernel name, from torch.profiler
+    (CUPTI), no host time: {kernel: (ms per call, records)}. The profiler's
+    schedule spends a first step of `iters` calls warming its tracing up
+    and records the second. CUPTI returns fewer records than launches, at
+    random and for any kernel (on one H100, windows of 10 launches of one
+    kernel came back with 10, 4, 1 or no records), so a kernel's time is the
+    mean over the records returned, times the launches a call makes of it
+    (its records over `iters`, rounded, at least 1), and `records` says how
+    many there were; a window with no record is tried again, up to three
+    times. With `match`, only the kernels whose name holds it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and match in e.key}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count and match in e.key
+                and not e.key.startswith("ProfilerStep")]
+        if rows:
+            break
+    return {e.key: (e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / iters)),
+                    e.count) for e in rows}
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Device time of one call of `fn`, all its kernels summed."""
-    return sum(device_ms_by_kernel(fn, iters).values())
+def device_ms(fn, match: str, iters: int = 10) -> tuple:
+    """Device time of one call of `fn` and the profiler records it rests on:
+    the kernels whose name holds `match` summed ("" takes every kernel, for
+    a library call). The time is None when the profiler returned no such
+    record: a time not measured prints as null, never as 0."""
+    by_kernel = device_ms_by_kernel(fn, iters, match)
+    if not by_kernel:
+        return None, 0
+    return sum(ms for ms, _ in by_kernel.values()), sum(n for _, n in by_kernel.values())
+
+
+def _device_fields(fn, match: str, iters: int = 10) -> dict:
+    ms, records = device_ms(fn, match, iters)
+    return {"kernel_device_ms": ms, "kernel_device_records": records,
+            "kernel_device_launches": iters}
 
 
 def wall_ms(fn):
@@ -347,6 +461,25 @@ def _check_ssd(shape, dtype, seed, with_state=False, bc_pad=8):
     return case, (x, a, Bm, Cm, s0)
 
 
+def _check_ssd_mixed(shape, seed):
+    """bfloat16 x with float32 a, B and C (the reference casts each input on
+    its own): the wrapper widens them all to float32 for the kernel and
+    returns y in x's type."""
+    x, a, Bm, Cm, _ = _ssd_inputs(shape, torch.float32, seed)
+    x = x.to(torch.bfloat16)
+    y, fin = ssd_chunked(x, a, Bm, Cm, chunk=shape[5])
+    y_ref, fin_ref = ssd_scan_ref(x, a, Bm, Cm)
+    torch.cuda.synchronize()
+    ok_y, err_y = _agree(f"ssd scan mixed y {shape}", y, y_ref, torch.bfloat16)
+    ok_s, err_s = _agree(f"ssd scan mixed state {shape}", fin, fin_ref.to(torch.bfloat16),
+                         torch.bfloat16)
+    case = {"shape": list(shape), "dtype": "bfloat16", "mixed": "x bfloat16, a/B/C float32",
+            "max_abs_err": max(err_y, err_s), "tol": TOL[torch.bfloat16]}
+    if not (ok_y and ok_s):
+        raise AssertionError(f"ssd scan on mixed types disagrees with its plain version: {case}")
+    return case
+
+
 def _flash_timing(shape, dtype, case, window=0):
     q, k, v = _qkv(shape, dtype, seed=1)
     B, S, H, K, D = shape
@@ -367,15 +500,22 @@ def _flash_timing(shape, dtype, case, window=0):
     kernel = lambda: flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
     # ms: back-to-back calls through the public wrapper, host work included
     # (CUDA events); device_ms: the kernels alone (profiler)
+    dev, records = device_ms(kernel, FLASH_NAME)
+    lib_dev, lib_records = device_ms(library, "")
     return {
         "shape": list(shape), "window": window, "kernel_ms": cuda_ms(kernel),
-        "kernel_device_ms": device_ms(kernel),
+        "kernel_device_ms": dev, "kernel_device_records": records,
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=window),
                             iters=5),
-        "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+        "library_ms": cuda_ms(library), "library_device_ms": lib_dev,
+        "library_device_records": lib_records,
         "library_max_abs_err": lib_err.item(),
         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"],
     }
+
+
+def _ssd_name(key: str) -> str:
+    return re.search(r"ssd_\w+(?:<\d+>)?", key).group(0)
 
 
 def _ssd_timing(shape, dtype, case, inputs):
@@ -387,9 +527,10 @@ def _ssd_timing(shape, dtype, case, inputs):
     by_kernel = device_ms_by_kernel(kernel, match=SSD_PREFIX)
     return {
         "shape": list(shape),
-        "kernel_ms": cuda_ms(kernel), "kernel_device_ms": sum(by_kernel.values()),
-        "kernel_device_ms_by_kernel": {re.search(r"ssd_\w+(?:<\d+>)?", k).group(0): v
-                                       for k, v in by_kernel.items()},
+        "kernel_ms": cuda_ms(kernel),
+        "kernel_device_ms": sum(ms for ms, _ in by_kernel.values()) if by_kernel else None,
+        "kernel_device_ms_by_kernel": {_ssd_name(k): ms for k, (ms, _) in by_kernel.items()},
+        "kernel_device_records": {_ssd_name(k): n for k, (_, n) in by_kernel.items()},
         "plain_ms": cuda_ms(lambda: ssd_scan_ref(x, a, Bm, Cm), iters=2, warmup=1),
         "library_ms": None,  # no single PyTorch call computes the SSD scan
         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"],
@@ -530,9 +671,13 @@ def phase_kernels() -> dict:
             kv_cases.append(case)
             for name, row in _kv_timing(shape, dtype, case).items():
                 timing[name][f"{dt}{suffix}"] = row
-    for shape in EDGE_SHAPES:
+    for shape in EDGE_SHAPES + PADDED_HEAD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             fa_cases.append(_check_case(shape, dtype, 0, seed=2)[0])
+    for shape in SSD_REF_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ssd_cases.append(_check_ssd(shape, dtype, seed=8)[0])
+        ssd_cases.append(_check_ssd_mixed(shape, seed=9))
     for window in (16, 64):
         for dtype in (torch.float32, torch.bfloat16):
             fa_cases.append(_check_case(WINDOW_SHAPE, dtype, window, seed=3)[0])
@@ -572,7 +717,7 @@ def phase_kv_path() -> dict:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     launches = read_launches()
-    want = {"flash_attention": 0, "ssd_scan": 0, "kv_pack": 1, "kv_unpack": 1}
+    want = {**NO_LAUNCHES, "kv_pack": 1, "kv_unpack": 1}
     if launches != want:
         raise AssertionError(f"the KV-page path launched {launches}, expected {want}")
 
@@ -627,8 +772,8 @@ def expected_launches(cfg) -> dict:
     Mamba2 layer; serving moves no KV pages through the page kernels."""
     has_attn = cfg.arch_type != "ssm"
     has_ssm = cfg.arch_type == "ssm" or cfg.hybrid
-    return {"flash_attention": cfg.num_layers if has_attn else 0,
-            "ssd_scan": cfg.num_layers if has_ssm else 0, "kv_pack": 0, "kv_unpack": 0}
+    return {**NO_LAUNCHES, "flash_attention": cfg.num_layers if has_attn else 0,
+            "ssd_scan": cfg.num_layers if has_ssm else 0}
 
 
 def _as_f32(params):
@@ -791,7 +936,7 @@ def _profiled(fn, top: int = 8) -> dict:
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3
-    flash = sum(e.self_device_time_total for e in rows if "flash_fwd" in e.key) / 1e3
+    flash = sum(e.self_device_time_total for e in rows if FLASH_NAME in e.key) / 1e3
     ssd = sum(e.self_device_time_total for e in rows if SSD_PREFIX in e.key) / 1e3
     return {"wall_ms": wall, "device_ms": busy, "device_busy_share": busy / wall,
             "flash_attention_ms": flash, "flash_attention_share": flash / busy if busy else 0.0,
@@ -872,10 +1017,11 @@ def phase_scenarios() -> dict:
     """Every library scenario through the port's scenario runner, with its
     declared expectations; one line each. Any violation fails the run."""
     t0 = time.perf_counter()
-    failed = {}
+    failed, policies = {}, {}
     for name in names():
         s0 = time.perf_counter()
         report = ScenarioRunner(get(name)).run()
+        policies[name] = report.to_dict()["policies"]
         emit({"phase": "scenario", "scenario": name, "ok": report.ok,
               "violations": report.violations, "wall_s": time.perf_counter() - s0,
               "policies": {p: {"throughput": r.throughput, "recovery_ms": r.recovery_ms,
@@ -888,15 +1034,653 @@ def phase_scenarios() -> dict:
     res = {"phase": "scenarios", "scenarios": len(names()), "violations": 0,
            "wall_s": time.perf_counter() - t0}
     emit(res)
+    return res, policies
+
+
+# ---------------------------------------------------------------------- jit_core
+def _with_jit(spec, on=True):
+    return dataclasses.replace(spec, engine=dataclasses.replace(spec.engine, jit_core=on))
+
+
+@contextlib.contextmanager
+def forced_crossover():
+    """Every wave and completion batch through the kernels: the adapter's
+    crossover (JIT_MIN and its tuned bounds) pinned to 1."""
+    saved = jit_core.JIT_MIN, jit_core.JIT_MIN_FLOOR, jit_core.JIT_MIN_CEIL
+    jit_core.JIT_MIN = jit_core.JIT_MIN_FLOOR = jit_core.JIT_MIN_CEIL = 1
+    try:
+        yield
+    finally:
+        jit_core.JIT_MIN, jit_core.JIT_MIN_FLOOR, jit_core.JIT_MIN_CEIL = saved
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Record the (candidates, slices) and (slots, completions) buckets the
+    two engine kernels are launched at, through their bindings."""
+    seen = {"choose": {}, "drain": {}}
+    choose, drain = tc_kernel.choose_wave_padded, tc_kernel.complete_many
+
+    def rec_choose(inp, out, pc, ps):
+        seen["choose"][(pc, ps)] = seen["choose"].get((pc, ps), 0) + 1
+        return choose(inp, out, pc, ps)
+
+    def rec_drain(state, batch, ps, pm):
+        seen["drain"][(ps, pm)] = seen["drain"].get((ps, pm), 0) + 1
+        return drain(state, batch, ps, pm)
+
+    tc_kernel.choose_wave_padded, tc_kernel.complete_many = rec_choose, rec_drain
+    try:
+        yield seen
+    finally:
+        tc_kernel.choose_wave_padded, tc_kernel.complete_many = choose, drain
+
+
+def engage_transfer() -> dict:
+    """The reference's engagement case (tests/test_jit_parity.py:69-118): on
+    a zero-jitter fabric, 4 MiB in 64 slices over 8 identical rails, whose
+    completions drain in same-timestamp groups of 8; the caller pins the
+    crossover to 1. The bytes must arrive."""
+    topo = Topology(FabricSpec())
+    eng = TentEngine(topology=topo, fabric=Fabric(topo, seed=0, jitter=0.0),
+                     config=EngineConfig(jit_core=True), device=DEV)
+    n = 4 << 20
+    src = eng.register_segment(Location(node=0, kind=MemoryKind.HOST_DRAM, numa=0), n)
+    dst = eng.register_segment(Location(node=1, kind=MemoryKind.HOST_DRAM, numa=0), n)
+    src.write(0, np.arange(n, dtype=np.uint8))
+    res = eng.transfer_sync(src.segment_id, 0, dst.segment_id, 0, n)
+    if not (res.ok and np.array_equal(dst.read(0, n), np.arange(n, dtype=np.uint8))):
+        raise AssertionError("the jitted-core transfer did not deliver its bytes")
+    return {"ok": True, "slices": eng.slices_issued, "kernel_waves": eng._jit.waves,
+            "kernel_drains": eng._jit.drains, "virtual_s": res.completed_at - res.submitted_at}
+
+
+def _pad_choose_args(rng, n_c, n_s, all_excluded=False):
+    """The reference's randomized chooser inputs (tests/test_jit_parity.py:120)."""
+    q = rng.integers(0, 1 << 28, size=n_c)
+    gl = rng.uniform(0.0, 1e7, size=n_c)
+    gr = rng.uniform(0.0, 1e7, size=n_c)
+    bw = rng.choice([1e9, 25e9, 100e9], size=n_c)
+    b0 = rng.uniform(0.0, 1e-3, size=n_c)
+    b1 = rng.uniform(0.05, 10.0, size=n_c)
+    pen = rng.choice([1.0, 1.0, 1.5, np.inf], size=n_c)
+    ex = np.ones(n_c, dtype=bool) if all_excluded else rng.random(n_c) < 0.35
+    lengths = rng.integers(1, 1 << 20, size=n_s)
+    return q, gl, gr, bw, b0, b1, pen, ex, lengths
+
+
+def _padded_choose(args):
+    """The adapter's padding: candidates to a bucket with penalty inf and
+    excluded, slices to a bucket marked invalid."""
+    q, gl, gr, bw, b0, b1, pen, ex, lengths = args
+    pc, ps = _bucket(len(q)), _bucket(len(lengths))
+
+    def pad(a, n, fill):
+        out = np.full(n, fill, dtype=np.float64)
+        out[:len(a)] = a
+        return out
+
+    valid = pad(np.ones(len(lengths)), ps, 0.0)
+    return (pad(q, pc, 0.0), pad(gl, pc, 0.0), pad(gr, pc, 0.0), pad(bw, pc, 1.0),
+            pad(b0, pc, 0.0), pad(b1, pc, 1.0), pad(pen, pc, np.inf), pad(ex, pc, 1.0),
+            pad(lengths, ps, 0.0), valid)
+
+
+def max_abs_diff(pairs) -> float:
+    """The largest |got - want| over (got, want) array pairs: 0.0 when every
+    element is equal (inf against inf, nan against nan included), inf when
+    one side is infinite and the other not."""
+    err = 0.0
+    for got, want in pairs:
+        got = np.asarray(got, dtype=np.float64)
+        want = np.asarray(want, dtype=np.float64)
+        same = (got == want) | (np.isnan(got) & np.isnan(want))
+        if not same.all():
+            diff = np.abs(got[~same] - want[~same])
+            err = max(err, float(np.nan_to_num(diff, nan=np.inf).max()))
+    return err
+
+
+def check_choose(args, rr, gamma) -> tuple:
+    """The chooser kernel (through the adapter's staged call) against the
+    numpy `tent_choose_wave` on the valid prefix, and against its torch twin
+    on the card on every padded output, bit for bit. Returns (bit-equal,
+    the largest difference from either)."""
+    n_c, n_s = len(args[0]), len(args[8])
+    want = tent_choose_wave(*args, rr, gamma=gamma)
+    padded = _padded_choose(args)
+    c, qa, qo, rro = tc_ops.choose_wave_padded_np(padded, rr, gamma, tc_ops.Staging(DEV))
+    tw = tent_choose_wave_padded_torch(*(torch.from_numpy(a).to(DEV) for a in padded), rr, gamma)
+    twin = [t.cpu().numpy() for t in tw[:3]] + [int(tw[3])]
+    got = (c[:n_s], qa[:n_s].astype(np.int64), qo[:n_c].astype(np.int64), rro)
+    ok = (all(np.array_equal(np.asarray(w), np.asarray(g)) for w, g in zip(want, got))
+          and np.array_equal(c, twin[0]) and np.array_equal(qa, twin[1])
+          and np.array_equal(qo, twin[2]) and rro == twin[3])
+    return ok, max_abs_diff(list(zip(got, want)) + list(zip((c, qa, qo, rro), twin)))
+
+
+def _seeded_store(rng, n_links):
+    """The reference's randomized telemetry store (tests/test_jit_parity.py)."""
+    store = TelemetryStore()
+    for i in range(n_links):
+        desc = LinkDesc(link_id=i, node=0, link_class=LinkClass.RDMA, index=i, numa=0,
+                        bandwidth=float(rng.choice([25e9, 1e9])), base_latency=5e-6)
+        tl = store.ensure(desc)
+        tl.queued_bytes = int(rng.integers(0, 1 << 30))
+        tl.beta0 = float(rng.uniform(0.0, 1e-2))
+        tl.beta1 = float(rng.uniform(0.05, 50.0))
+        tl.ewma_service_time = float(rng.uniform(0.0, 1.0))
+    return store
+
+
+class _Policy:  # the drain only touches the store
+    _rr = 0
+    gamma = 0.05
+
+
+_DRAIN_STATE = ("beta0_arr", "beta1_arr", "queued_arr", "ewma_service_arr", "completions_arr")
+
+
+def check_drain(seed, n_links, batch) -> tuple:
+    """The drain kernel through the adapter (gather, scratch-row padding,
+    one launch, scatter) against the numpy store's drain, and through its
+    wrapper against its torch twin on the card on every padded row, bit for
+    bit. Returns (bit-equal, the largest difference from either)."""
+    a, b, c = (_seeded_store(np.random.default_rng(seed), n_links) for _ in range(3))
+    a.on_complete_many(*batch)
+    EngineJitCore(_Policy(), b, device=DEV).on_complete_many(*batch)
+    store_pairs = [(getattr(b, k)[:b.n], getattr(a, k)[:a.n]) for k in _DRAIN_STATE]
+    same = all(np.array_equal(g, w) for g, w in store_pairs)
+    ps, m = _bucket(n_links + 1), len(batch[0])
+    pm = _bucket(m)
+    state = c.gather_complete_state(ps)
+
+    def pad(v, fill):
+        out = np.full(pm, fill, dtype=np.float64)
+        out[:m] = v
+        return out
+
+    tb = (pad(batch[0], n_links), pad(batch[1], 0.0), pad(batch[2], 0.0), pad(batch[3], 0.0))
+    got = tc_ops.complete_many_np(state, *tb, tc_ops.Staging(DEV))
+    want = [w.cpu().numpy() for w in
+            tent_on_complete_many_torch(*(torch.from_numpy(a).to(DEV) for a in state + tb))]
+    ok = same and all(np.array_equal(g, w) for g, w in zip(got, want))
+    return ok, max_abs_diff(store_pairs + list(zip(got, want)))
+
+
+def _drain_batch(rng, n_links, m):
+    return (rng.integers(0, n_links, size=m), rng.integers(0, 1 << 22, size=m),
+            rng.integers(0, 1 << 24, size=m), rng.uniform(0.0, 5.0, size=m))
+
+
+def jit_kernel_checks() -> dict:
+    """Both engine kernels on randomized padded inputs at buckets 8-1024,
+    the all-excluded wave, padding rows and the scratch row."""
+    rng = np.random.default_rng(29)
+    sizes = [(int(rng.integers(1, 11)), int(rng.integers(1, 50))) for _ in range(40)]
+    sizes += [(30, 100), (8, 256), (100, 500), (500, 300), (1000, 1000), (12, 1024)]
+    choose = [check_choose(_pad_choose_args(rng, n_c, n_s), int(rng.integers(0, 1000)),
+                           float(rng.choice([0.0, 0.05, 0.2]))) for n_c, n_s in sizes]
+    excluded = [check_choose(_pad_choose_args(rng, int(rng.integers(2, 9)), 8,
+                                              all_excluded=True), 5, 0.05) for _ in range(20)]
+    # a padded candidate (penalty inf, excluded) loses even to an excluded real rail
+    one = tuple(np.asarray(v, dtype=float) for v in
+                ([100], [0.0], [0.0], [1e9], [0.0], [1.0], [1.0], [True], [4096, 4096, 4096]))
+    c, _, qo, rro = tc_ops.choose_wave_padded_np(_padded_choose(one), 0, 0.05,
+                                                 tc_ops.Staging(DEV))
+    padding = check_choose(one, 0, 0.05)
+    padding_never = bool((c[:3] == 0).all() and rro == 3 and qo[0] == 100 + 3 * 4096
+                         and padding[0])
+    drains = [(int(rng.integers(1, 7)), int(rng.integers(1, 40))) for _ in range(30)]
+    drains += [(16, 64), (100, 256), (1000, 1000), (6, 1024)]
+    drain = [check_drain(int(rng.integers(0, 1 << 30)), n_links, _drain_batch(rng, n_links, m))
+             for n_links, m in drains]
+    # batch padding scatters into slot n; rows 0..n-1 see only the real batch
+    scratch = check_drain(9, 3, tuple(np.asarray(v) for v in (
+        [0, 2, 2], [4096, 1 << 20, 0], [100, 5000, 0], [0.25, 0.5, 0.75])))
+    bad = [i for i, (ok, _) in enumerate(choose) if not ok]
+    bad_excluded = [i for i, (ok, _) in enumerate(excluded) if not ok]
+    bad_drain = [i for i, (ok, _) in enumerate(drain) if not ok]
+    res = {"choose_cases": len(sizes), "choose_mismatches": bad,
+           "all_excluded_cases": len(excluded), "all_excluded_mismatches": bad_excluded,
+           "padding_rows_never_selected": padding_never,
+           "drain_cases": len(drains), "drain_mismatches": bad_drain,
+           "scratch_row_survives": scratch[0],
+           "choose_max_abs_err": max(err for _, err in choose + excluded + [padding]),
+           "drain_max_abs_err": max(err for _, err in drain + [scratch]),
+           "buckets": sorted({_bucket(n) for pair in sizes + drains for n in pair})}
+    if bad or bad_excluded or bad_drain or not (padding_never and scratch[0]):
+        raise AssertionError(f"the engine kernels disagree with their twins: {res}")
+    return res
+
+
+def _host_ms(fn, iters):
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def choose_timing(n_c, n_s) -> dict:
+    """The chooser at one shape: the kernel entry on packed card buffers (CUDA
+    events; profiler), its plain torch version on the card, the numpy
+    twin on the host, the adapter's staged round trip (host clock, copies
+    and the wait included). Bound: the packed buffers moved once, and per
+    slice and candidate the score's 7 fp64 operations and the window test;
+    the slices are dependent steps."""
+    rng = np.random.default_rng(3)
+    args = _pad_choose_args(rng, n_c, n_s)
+    padded = _padded_choose(args)
+    pc, ps = len(padded[0]), len(padded[8])
+    inp = torch.from_numpy(np.concatenate(list(padded) + [np.array([7.0, 0.05])])).to(DEV)
+    out = torch.empty(tc_kernel.choose_out_size(pc, ps), dtype=torch.float64, device=DEV)
+    card = [torch.from_numpy(a).to(DEV) for a in padded]
+    staging = tc_ops.Staging(DEV)
+    kern = lambda: tc_kernel.choose_wave_padded(inp, out, pc, ps)  # noqa: E731
+    nbytes = 8 * (tc_kernel.choose_in_size(pc, ps) + tc_kernel.choose_out_size(pc, ps))
+    flops = 8.0 * pc * ps
+    t_b, t_o = nbytes / HBM_BPS, flops / PEAK_F64
+    return {"candidates": n_c, "slices": n_s, "pc": pc, "ps": ps, "serial_steps": ps,
+            "kernel_ms": cuda_ms(kern),
+            **_device_fields(kern, "tent_choose_wave_padded"),
+            "plain_ms": cuda_ms(lambda: tent_choose_wave_padded_torch(*card, 7, 0.05),
+                                iters=3, warmup=1),
+            "numpy_ms": _host_ms(lambda: tent_choose_wave(*args, 7, gamma=0.05), 5),
+            "adapter_ms": _host_ms(lambda: tc_ops.choose_wave_padded_np(
+                padded, 7, 0.05, staging), 20),
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None}
+
+
+def drain_timing(n_links, m) -> dict:
+    """The drain at one shape, as `choose_timing`. Bound: the packed state and
+    batch moved once and ~16 fp64 operations per completion; the dependent
+    steps are the most completions one slot takes."""
+    rng = np.random.default_rng(4)
+    batch = _drain_batch(rng, n_links, m)
+    store = _seeded_store(np.random.default_rng(5), n_links)
+    ps, pm = _bucket(n_links + 1), _bucket(m)
+    st = store.gather_complete_state(ps)
+    bt = [np.full(pm, f, dtype=np.float64) for f in (n_links, 0.0, 0.0, 0.0)]
+    for col, v in zip(bt, batch):
+        col[:m] = v
+    state0 = torch.from_numpy(np.concatenate(st)).to(DEV)
+    state = state0.clone()
+    card_batch = torch.from_numpy(np.concatenate(bt)).to(DEV)
+    card_state = [torch.from_numpy(s).to(DEV) for s in st]
+    card_cols = [torch.from_numpy(c).to(DEV) for c in bt]
+    kern = lambda: tc_kernel.complete_many(state, card_batch, ps, pm)  # noqa: E731
+    numpy_store = _seeded_store(np.random.default_rng(5), n_links)
+    adapter = EngineJitCore(_Policy(), _seeded_store(np.random.default_rng(5), n_links),
+                            device=DEV)
+    nbytes = 8 * (8 * ps + 4 * pm + 5 * ps)
+    t_b, t_o = nbytes / HBM_BPS, 16.0 * m / PEAK_F64
+    return {"slots": n_links, "completions": m, "ps": ps, "pm": pm,
+            "serial_steps": int(np.bincount(batch[0]).max()),
+            "kernel_ms": cuda_ms(kern),
+            **_device_fields(kern, "tent_on_complete_many"),
+            "plain_ms": cuda_ms(lambda: tent_on_complete_many_torch(*card_state, *card_cols),
+                                iters=3, warmup=1),
+            "numpy_ms": _host_ms(lambda: numpy_store.on_complete_many(*batch), 5),
+            "adapter_ms": _host_ms(lambda: adapter.on_complete_many(*batch), 20),
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": None}
+
+
+def jit_core_main_path() -> dict:
+    """The jitted core's main path, every count set to 0 just before it, and
+    the timings of both kernels, while nothing else uses the card."""
+    with forced_crossover(), kernel_shapes() as shapes:
+        reset_launches()
+        t0 = time.perf_counter()
+        engage = engage_transfer()
+        engage["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        main = read_launches()
+    engage["shapes"] = {k: {str(s): n for s, n in v.items()} for k, v in shapes.items()}
+    if not (main["tent_choose_wave_padded"] > 0 and main["tent_on_complete_many"] > 0
+            and all(main[k] == 0 for k in main if not k.startswith("tent_"))):
+        raise AssertionError(f"the jitted core's transfer launched {main}")
+    # the kernels timed at the buckets the main path launched them at
+    choose = max(shapes["choose"].items(), key=lambda kv: kv[1])[0]
+    drain = max(shapes["drain"].items(), key=lambda kv: kv[1])[0]
+    timing = {
+        "tent_choose_wave_padded": choose_timing(*choose),
+        "tent_on_complete_many": drain_timing(drain[0] - 1, drain[1]),
+        "adapter_crossover": {str(b): {"choose": choose_timing(8, b), "drain": drain_timing(16, b)}
+                              for b in JIT_BUCKETS},
+    }
+    return {"main_path": engage, "main_path_launches": main, "timing": timing}
+
+
+def phase_jit_core(jit_off: dict, main_path: dict) -> dict:
+    """The jitted core's checks. `jit_off` holds each library scenario's
+    jit-off `policies` from the scenarios phase; `main_path` is
+    `jit_core_main_path()`'s result. Times nothing, since it runs beside
+    the sweep's worker processes: `finish_jit_core` times the library pass
+    and emits the line once they have ended."""
+    checks = jit_kernel_checks()
+    # the engaging scenarios with jit_core on, against the jit-off reports;
+    # each must still launch a kernel, or the list has gone stale
+    differ, per_scenario = [], {}
+    with kernel_shapes() as lib_shapes:
+        reset_launches()
+        for name in JIT_ENGAGING:
+            before = tc_kernel.choose_launches + tc_kernel.drain_launches
+            got = ScenarioRunner(_with_jit(get(name)), device=DEV).run().to_dict()["policies"]
+            per_scenario[name] = tc_kernel.choose_launches + tc_kernel.drain_launches - before
+            if got != jit_off[name] or not per_scenario[name]:
+                differ.append(name)
+        library = read_launches()
+    with forced_crossover():
+        reset_launches()
+        for name in FORCED_CROSSOVER:
+            got = ScenarioRunner(_with_jit(get(name)), device=DEV).run().to_dict()["policies"]
+            if got != jit_off[name]:
+                differ.append(f"{name} (crossover 1)")
+        forced = read_launches()
+    if differ:
+        raise AssertionError(f"jit_core on changed the reports of {differ}, or launched no "
+                             f"kernel there: {per_scenario}")
+    # a recorder turns the jitted core off, loudly, and changes nothing
+    spec = _with_jit(get("uniform_spray"))
+    runner = ScenarioRunner(spec, device=DEV)
+    plain = runner.run_policy(spec.policies[0]).to_dict()
+    rec = FlightRecorder(capacity=1 << 18)
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        recorded = runner.run_policy(spec.policies[0], recorder=rec).to_dict()
+    rec_launches = read_launches()["tent_choose_wave_padded"]
+    warned = any(issubclass(w.category, RuntimeWarning) and "jitted core" in str(w.message)
+                 for w in caught)
+    waves = [pl for _, kind, pl in rec.events() if kind == OBS.WAVE]
+    for pl in waves:
+        replay_wave(pl)  # raises ProvenanceError on any pick it cannot reproduce
+    recorder = {"scenario": spec.name, "warned": warned, "report_equal": recorded == plain,
+                "launches_while_recorded": rec_launches, "waves_replayed": len(waves)}
+    if not (warned and recorded == plain and rec_launches == 0 and waves):
+        raise AssertionError(f"the recorded jit run misbehaved: {recorder}")
+    res = {"phase": "jit_core", **main_path, "kernel_checks": checks,
+           "library_scenarios": list(JIT_ENGAGING), "library_equal_jit_off": True,
+           "library_launches": library,
+           "library_launches_by_scenario": per_scenario,
+           "library_shapes": {k: {str(s): n for s, n in v.items()} for k, v in lib_shapes.items()},
+           "forced_crossover": list(FORCED_CROSSOVER), "forced_launches": forced,
+           "recorder": recorder}
+    return res
+
+
+def finish_jit_core(res: dict) -> dict:
+    """With the worker processes ended, the host this process's alone: one
+    pass over the engaging scenarios with jit_core off and one with it on,
+    each timed. Emits the jit_core line."""
+    walls = {}
+    for on in (False, True):
+        t0 = time.perf_counter()
+        for name in JIT_ENGAGING:
+            ScenarioRunner(_with_jit(get(name), on), device=DEV).run()
+        walls[on] = time.perf_counter() - t0
+    res = {**res, "library_jit_off_s": walls[False], "library_s": walls[True]}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------- mc_sweep
+def _worker_init():
+    torch.set_num_threads(1)
+
+
+def _numpy_lane(name, policy, seed):
+    """One lane of the numpy twin, in a worker process: its output and s."""
+    spec = get(name)
+    p = compile_spray_program(spec)
+    draws = make_draws(p, base_seed=spec.seed, seed_index=seed)
+    t0 = time.perf_counter()
+    out = simulate_spray_ref(p, draws, policy=policy, fault_jitter=MC_JITTER)
+    return out, time.perf_counter() - t0
+
+
+def _cpu_sweep_json(name, n_seeds):
+    """The sweep on the CPU (the plain torch sim), in a worker process."""
+    sweep = MonteCarloSweep(get(name), n_seeds=n_seeds, fault_jitter=MC_JITTER, device="cpu")
+    return sweep.run().to_json(sort_keys=True)
+
+
+def _plain_lanes(name, policy, n_seeds, device):
+    """Every lane of the plain torch sim of one sweep, in a worker process
+    (the plain sim is bound by its host dispatch, so processes run several
+    at once): the (n_seeds, 5) outputs as numpy and the wall s."""
+    spec = get(name)
+    p = compile_spray_program(spec)
+    draws = stack_draws(p, n_seeds, base_seed=spec.seed)
+    t0 = time.perf_counter()
+    out = spray_sim_ref(p, draws, policy=policy, fault_jitter=MC_JITTER, device=device)
+    out = out.cpu().numpy()
+    return out, time.perf_counter() - t0
+
+
+def sim_bound(p, n_lanes) -> tuple:
+    """Least time for a sweep: the draws read once and the outputs written
+    once; per lane and slice the tent score over D + 1 rails (5 fp64
+    operations each) and some 35 operations of posting and draining, first
+    attempts only (this run's retries add well under 1 %). Each lane is
+    rounds x wave dependent steps."""
+    per_lane = (p.fail_start.size * 2 + p.degs_start.size * 3 + p.degd_start.size * 3
+                + p.rounds * p.wave * 2 + 5)
+    t_b = 8.0 * per_lane * n_lanes / HBM_BPS
+    t_o = n_lanes * p.rounds * p.wave * (5.0 * (p.n_rails + 1) + 35) / PEAK_F64
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+# the plain sims that are timed run in this process once the worker
+# processes have ended, so that their walls share the host with nothing
+TIMED_PLAIN = ("single_rail_flap", "tent")
+
+
+def start_mc_jobs(pool) -> dict:
+    """The sweep's host-heavy checks, started in worker processes: the plain
+    sim on the card for each scenario and policy but TIMED_PLAIN (the
+    longest first), the CPU sweep of the flap, and the numpy twin's lanes.
+    No time they take is reported as a time of the port: seven processes
+    share the card and the host's cores."""
+    order = sorted(((n, pol) for n in MC_SCENARIOS for pol in SWEEP_POLICIES
+                    if (n, pol) != TIMED_PLAIN),
+                   key=lambda k: -compile_spray_program(get(k[0])).rounds)
+    return {"plain": {key: pool.submit(_plain_lanes, *key, MC_SEEDS, DEV) for key in order},
+            "cpu_json": pool.submit(_cpu_sweep_json, "single_rail_flap", MC_SEEDS),
+            "lanes": {(n, pol, s): pool.submit(_numpy_lane, n, pol, s)
+                      for n in MC_SCENARIOS for pol in SWEEP_POLICIES for s in MC_NUMPY_SEEDS}}
+
+
+def mc_workers():
+    return ProcessPoolExecutor(MC_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_worker_init)
+
+
+def phase_mc_sweep(jobs: dict) -> dict:
+    """The Monte Carlo sweep on the card, its lanes held against the jobs of
+    `start_mc_jobs`. Times nothing, since the workers share the host; returns
+    what `finish_mc_sweep` checks, times and reports once they have ended."""
+    bench = {r["scenario"].removesuffix("::mc"): r
+             for r in json.loads((ROOT / "BENCH_mc.json").read_text())["reports"]}
+    sweeps = {n: MonteCarloSweep(get(n), n_seeds=MC_SEEDS, fault_jitter=MC_JITTER, device=DEV)
+              for n in MC_SCENARIOS}
+    plain, lanes = jobs["plain"], jobs["lanes"]
+    # the main path: the five sweeps, every count set to 0 just before
+    torch.cuda.synchronize()
+    reset_launches()
+    reports = {n: s.run() for n, s in sweeps.items()}
+    torch.cuda.synchronize()
+    main = read_launches()
+    if main != {**NO_LAUNCHES, "spray_sim": len(MC_SCENARIOS) * len(SWEEP_POLICIES)}:
+        raise AssertionError(f"the sweeps launched {main}")
+    rows, failed, timed_lanes, errs = {}, [], None, []
+    for name, sweep in sweeps.items():
+        rep, p = reports[name], sweep.program
+        draws = stack_draws(p, MC_SEEDS, base_seed=sweep.base_seed)
+        row = {"rounds": p.rounds, "wave": p.wave, "rails": p.n_rails, "ok": rep.ok,
+               "violations": list(rep.violations), "policies": {}}
+        for pol in SWEEP_POLICIES:
+            k = spray_sim(p, draws, policy=pol, fault_jitter=MC_JITTER,
+                          device=DEV).cpu().numpy()
+            numpy = [lanes[(name, pol, s)].result()[0] for s in MC_NUMPY_SEEDS]
+            dist = rep.policies[pol]
+            summary = dist.summary
+            cell = row["policies"][pol] = {
+                "lanes_equal_report": tuple(k[:, 0].tolist()) == dist.throughput,
+                "seeds_equal_numpy_twin": all(tuple(k[s].tolist()) == lane
+                                              for s, lane in zip(MC_NUMPY_SEEDS, numpy)),
+                "throughput_p50": summary["throughput_p50"],
+                "healing_p999_ms": summary["healing_p999_ms"],
+                "lost_total": summary["lost_total"]}
+            pairs = [(k[s], lane) for s, lane in zip(MC_NUMPY_SEEDS, numpy)]
+            if (name, pol) == TIMED_PLAIN:
+                timed_lanes = k  # held against the plain sim by finish_mc_sweep
+            else:
+                out, cell["plain_in_worker_s"] = plain[(name, pol)].result()
+                cell["lanes_equal_plain_on_card"] = k.tobytes() == out.tobytes()
+                pairs.append((k, out))
+                if not cell["lanes_equal_plain_on_card"]:
+                    failed.append(f"{name}/{pol} lanes against the plain sim")
+            cell["max_abs_err"] = max_abs_diff(pairs)
+            errs.append(cell["max_abs_err"])
+            if not (cell["lanes_equal_report"] and cell["seeds_equal_numpy_twin"]):
+                failed.append(f"{name}/{pol} lanes")
+        want = bench[name]["policies"]["tent"]["extra"]["throughput_p50"]
+        got = row["policies"]["tent"]["throughput_p50"]
+        row["tent_throughput_p50_vs_bench"] = got / want
+        bound = get(name).expectations.healing_p999_ms
+        row["healing_p999_bound_ms"] = bound
+        if not rep.ok:
+            failed.append(f"{name} violations {list(rep.violations)}")
+        if abs(got / want - 1.0) > MC_BAND:
+            failed.append(f"{name} tent throughput P50 {got} vs BENCH_mc.json {want}")
+        if bound > 0 and not 0 <= row["policies"]["tent"]["healing_p999_ms"] <= bound:
+            failed.append(f"{name} healing P99.9 over {bound} ms")
+        rows[name] = row
+    flap_equal = (jobs["cpu_json"].result()
+                  == reports["single_rail_flap"].to_json(sort_keys=True))
+    if not flap_equal:
+        failed.append("single_rail_flap report differs between the card and the CPU")
+    numpy_s = [lanes[key].result()[1] for key in lanes]
+    if failed:
+        raise AssertionError(f"the Monte Carlo sweep failed: {failed}")
+    res = {"phase": "mc_sweep", "main_path_launches": main, "workers": MC_WORKERS,
+           "flap_report_equal_cpu": flap_equal, "numpy_lanes_checked": len(numpy_s),
+           "numpy_in_worker_ms_per_lane": float(np.mean(numpy_s)) * 1e3}
+    return {"res": res, "rows": rows, "sweeps": sweeps, "reports": reports,
+            "timed_lanes": timed_lanes, "max_abs_err": max(errs)}
+
+
+def _timed_plain(p, draws, policy, n_lanes) -> tuple:
+    """The plain torch sim on the card over every lane, alone on the host:
+    its (n_lanes, 5) outputs as numpy and its wall ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = spray_sim_ref(p, draws, policy=policy, fault_jitter=MC_JITTER, device=DEV)
+    out = out.cpu().numpy()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def finish_mc_sweep(state: dict) -> dict:
+    """With the worker processes ended, the host and the card this
+    process's alone: the flap's tent lanes against the plain sim (timed),
+    one numpy lane (timed), a second, timed pass of the main path with the
+    draws timed on their own (its reports byte-equal to the first's), one
+    4096-seed flap_storm sweep against the plain sim's 4096 lanes (both
+    timed), and the kernel timed at the flap's shape. Emits the
+    mc_scenario lines and the mc_sweep line."""
+    sweeps, rows, reports = state["sweeps"], state["rows"], state["reports"]
+    name, pol = TIMED_PLAIN
+    flap = sweeps[name]
+    draws = stack_draws(flap.program, MC_SEEDS, base_seed=flap.base_seed)
+    plain_out, plain_ms = _timed_plain(flap.program, draws, pol, MC_SEEDS)
+    k = state["timed_lanes"]
+    t0 = time.perf_counter()
+    lane0 = simulate_spray_ref(flap.program, {key: v[0] for key, v in draws.items()},
+                               policy=pol, fault_jitter=MC_JITTER)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    cell = rows[name]["policies"][pol]
+    cell["lanes_equal_plain_on_card"] = k.tobytes() == plain_out.tobytes()
+    cell["plain_on_card_ms"] = plain_ms
+    cell["max_abs_err"] = max_abs_diff([(k, plain_out), (k[0], lane0)])
+    if not (cell["lanes_equal_plain_on_card"] and tuple(k[0].tolist()) == lane0):
+        raise AssertionError(f"{name}/{pol} lanes differ from the plain sim or the numpy twin")
+    for n, row in rows.items():
+        emit({"phase": "mc_scenario", "scenario": n, **row})
+    # the main path again, timed: the draws alone first (a sweep draws once
+    # per policy, so twice per scenario), then the five sweeps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in sweeps.values():
+        stack_draws(s.program, MC_SEEDS, base_seed=s.base_seed)
+    draws_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = {n: s.run() for n, s in sweeps.items()}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    if any(again[n].to_json(sort_keys=True) != reports[n].to_json(sort_keys=True)
+           for n in sweeps):
+        raise AssertionError("a repeated sweep's report differs from the first")
+    big = sweeps[MC_BIG_SCENARIO]
+    t0 = time.perf_counter()
+    big_draws = stack_draws(big.program, MC_BIG, base_seed=big.base_seed)
+    big_draws_s = time.perf_counter() - t0
+    big_kern, big_kern_ms = wall_ms(lambda: spray_sim(
+        big.program, big_draws, policy="tent", fault_jitter=MC_JITTER, device=DEV))
+    big_k = big_kern.cpu().numpy()
+    del big_kern
+    big_out, big_plain_ms = _timed_plain(big.program, big_draws, "tent", MC_BIG)
+    del big_draws
+    heal = big_k[:, 1]
+    heal_ms = np.where(heal < 0, -1.0, np.minimum(heal * 1e3, 1e9))
+    healed = heal_ms[heal_ms >= 0]
+    b_bound, b_by = sim_bound(big.program, MC_BIG)
+    big_row = {"scenario": MC_BIG_SCENARIO, "lanes": MC_BIG,
+               "serial_steps_per_lane": big.program.rounds * big.program.wave,
+               "draws_s": big_draws_s, "kernel_wall_ms": big_kern_ms,
+               "plain_on_card_wall_ms": big_plain_ms,
+               "lanes_equal_plain_on_card": big_k.tobytes() == big_out.tobytes(),
+               "max_abs_err": max_abs_diff([(big_k, big_out)]),
+               "tent_healing_p999_ms": float(np.percentile(healed, 99.9)),
+               "tent_healing_p50_ms": float(np.percentile(healed, 50)),
+               "tent_throughput_p50": float(np.percentile(big_k[:, 0], 50)),
+               "bound_ms": b_bound, "bound_by": b_by}
+    if not big_row["lanes_equal_plain_on_card"]:
+        raise AssertionError("the 4096-seed sweep's lanes differ from the plain sim")
+    # the kernel alone at the flap's shape (64 lanes)
+    p = flap.program
+    card = [torch.from_numpy(draws[key]).to(DEV) for key in ("uf", "us", "ud", "jm")]
+    kern = lambda: sim_kernel.spray_sim(p, *card, round_robin=False,  # noqa: E731
+                                        fault_jitter=MC_JITTER)
+    bound, bound_by = sim_bound(p, MC_SEEDS)
+    timing = {"lanes": MC_SEEDS, "serial_steps_per_lane": p.rounds * p.wave,
+              "kernel_ms": cuda_ms(kern, iters=3, warmup=1),
+              **_device_fields(kern, "spray_sim", iters=2),
+              "plain_ms": plain_ms, "numpy_ms_per_lane": numpy_ms,
+              "numpy_ms": numpy_ms * MC_SEEDS,
+              "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+              "max_abs_err": max([state["max_abs_err"], cell["max_abs_err"],
+                                  big_row["max_abs_err"]]),
+              "big": big_row}
+    res = {**state["res"], "main_path_s": main_s, "main_path_draws_s": draws_s,
+           "repeat_reports_equal": True, "timing": timing}
+    emit(res)
     return res
 
 
 def _summary(name, source, replaces, launches, timing) -> dict:
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": timing["max_abs_err"], "ms": timing["kernel_ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
+    out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(launches.values()), "launches_by_path": launches,
+           "max_abs_err": timing["max_abs_err"], "ms": timing["kernel_ms"],
+           "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+           "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
+    for key in ("numpy_ms", "serial_steps", "serial_steps_per_lane", "kernel_device_ms",
+                "kernel_device_records"):
+        if key in timing:
+            out[key] = timing[key]
+    return out
 
 
 def main() -> int:
@@ -920,7 +1704,20 @@ def main() -> int:
         del serve, model
         torch.cuda.empty_cache()
     phase_hicache()
-    phase_scenarios()
+    _, jit_off = phase_scenarios()
+    jit_main = jit_core_main_path()
+    with mc_workers() as pool:
+        # the sweep's host-heavy checks run in worker processes beside the
+        # checks of jit_core and mc_sweep, which time nothing
+        jobs = start_mc_jobs(pool)
+        jit_checks = phase_jit_core(jit_off, jit_main)
+        mc_state = phase_mc_sweep(jobs)
+    jit = finish_jit_core(jit_checks)
+    mc = finish_mc_sweep(mc_state)
+    for name in ("tent_choose_wave_padded", "tent_on_complete_many"):
+        launches[name]["engage_transfer"] = jit["main_path_launches"][name]
+    launches["spray_sim"]["mc_sweep"] = mc["main_path_launches"]["spray_sim"]
+    jt = jit["timing"]
     t = kern["timing"]  # float32 rows; the kernels line above has every dtype and shape
     emit({"kernels": [
         _summary("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -935,6 +1732,16 @@ def main() -> int:
         _summary("kv_unpack", "src/repro_torch/csrc/kv_pack.cu",
                  "src/repro/kernels/kv_pack/kernel.py:52",
                  launches["kv_unpack"], t["kv_unpack"]["float32"]),
+        _summary("tent_choose_wave_padded", "src/repro_torch/csrc/tent_core.cu",
+                 "src/repro/core/scheduler.py:552", launches["tent_choose_wave_padded"],
+                 {**jt["tent_choose_wave_padded"],
+                  "max_abs_err": jit["kernel_checks"]["choose_max_abs_err"]}),
+        _summary("tent_on_complete_many", "src/repro_torch/csrc/tent_core.cu",
+                 "src/repro/core/scheduler.py:489", launches["tent_on_complete_many"],
+                 {**jt["tent_on_complete_many"],
+                  "max_abs_err": jit["kernel_checks"]["drain_max_abs_err"]}),
+        _summary("spray_sim", "src/repro_torch/csrc/spray_sim.cu",
+                 "src/repro/core/jit_core.py:504", launches["spray_sim"], mc["timing"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

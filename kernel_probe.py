@@ -5,6 +5,7 @@
     python3 kernel_probe.py check float32    # SSD scan (and flash) against the plain versions
     python3 kernel_probe.py check bfloat16
     python3 kernel_probe.py time             # SSD and flash times, the SSD split by kernel
+    python3 kernel_probe.py engine           # the engine's fp64 kernels and the padded shapes
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -16,7 +17,10 @@ plus two odd ones (P = 40, N = 24, chunk 32 with an initial state; N = 100
 with B/C rows 2N + 1 apart), and flash attention at qwen2-0.5b's shape.
 `time` gives the CUDA-event time through the public wrapper and the
 profiler's device time of each kernel, at the mamba2-370m and hymba-1.5b
-serving shapes.
+serving shapes. `engine` checks the jitted engine core's two kernels and
+the spray sim against their twins (the checks of `chip_smoke.py`'s
+jit_core phase and the flap's 64 lanes), the padded flash head dims and the
+SSD's reference shapes, and times the three engine kernels once.
 """
 from __future__ import annotations
 
@@ -31,6 +35,9 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 WGMMA_SOURCES = ("ssd_scan", "flash_attention")
+# every source `build` compiles, with its library's own nvcc flags
+SOURCES = {"ssd_scan": (), "flash_attention": (), "tent_core": ("--fmad=false",),
+           "spray_sim": ("--fmad=false",)}
 
 
 def build() -> int:
@@ -42,12 +49,13 @@ def build() -> int:
 
     def one(name):
         lib = out / f"{name}.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
-                               str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *SOURCES[name], "-Xptxas", "-v", "-o",
+                               str(lib), str(CSRC / f"{name}.cu")], capture_output=True,
+                              text=True)
         return name, proc, lib
 
-    with ThreadPoolExecutor(len(WGMMA_SOURCES)) as pool:
-        results = list(pool.map(one, WGMMA_SOURCES))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        results = list(pool.map(one, SOURCES))
     rc = 0
     for name, proc, lib in results:
         print(f"== {name}: nvcc exit {proc.returncode}")
@@ -59,8 +67,9 @@ def build() -> int:
         for line in log:
             if any(k in line for k in ("Compiling entry", "registers", "spill", "C7515", "warning")):
                 print("  " + line.strip()[:240])
-        for func, n in sass_hgmma(lib).items():
-            print(f"  HGMMA {n:4d} {func}")
+        if name in WGMMA_SOURCES:
+            for func, n in sass_hgmma(lib).items():
+                print(f"  HGMMA {n:4d} {func}")
     return rc
 
 
@@ -111,8 +120,64 @@ def time_kernels() -> int:
         q, k, v = cs._qkv(cs.SERVE_SHAPE, dtype, 1)
         fn = lambda: cs.flash_attention(q, k, v, causal=True)  # noqa: E731
         print(json.dumps({"flash": str(dtype), "ms": cs.cuda_ms(fn),
-                          "device_ms": cs.device_ms(fn)}), flush=True)
+                          "device_ms": cs.device_ms(fn, cs.FLASH_NAME)}), flush=True)
     return 0
+
+
+def engine() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    print(cs.nvidia_smi(), flush=True)
+    for mod in cs.LIBRARIES:
+        mod.load()
+    bad = 0
+    for label, call in (
+            ("flash padded head dims", lambda: [cs._check_case(s, dt, 0, seed=2)[0]["max_abs_err"]
+                                                for s in cs.PADDED_HEAD_SHAPES
+                                                for dt in (torch.float32, torch.bfloat16)]),
+            ("ssd reference shapes", lambda: [cs._check_ssd(s, dt, seed=8)[0]["max_abs_err"]
+                                              for s in cs.SSD_REF_SHAPES
+                                              for dt in (torch.float32, torch.bfloat16)]),
+            ("ssd mixed types", lambda: [cs._check_ssd_mixed(s, seed=9)["max_abs_err"]
+                                         for s in cs.SSD_REF_SHAPES]),
+            ("engine kernels", cs.jit_kernel_checks)):
+        try:
+            print("OK ", label, json.dumps(call()), flush=True)
+        except AssertionError as err:
+            bad += 1
+            print("BAD", label, str(err)[:2000], flush=True)
+    with cs.forced_crossover():
+        cs.reset_launches()
+        print("engage", json.dumps(cs.engage_transfer()), json.dumps(cs.read_launches()),
+              flush=True)
+    sweep = cs.MonteCarloSweep(cs.get("single_rail_flap"), n_seeds=cs.MC_SEEDS,
+                               fault_jitter=cs.MC_JITTER)
+    p = sweep.program
+    draws = cs.stack_draws(p, cs.MC_SEEDS, base_seed=sweep.base_seed)
+    for pol in cs.SWEEP_POLICIES:
+        kern, k_ms = cs.wall_ms(lambda: cs.spray_sim(p, draws, policy=pol,
+                                                      fault_jitter=cs.MC_JITTER, device="cuda"))
+        plain, p_ms = cs.wall_ms(lambda: cs.spray_sim_ref(p, draws, policy=pol,
+                                                         fault_jitter=cs.MC_JITTER,
+                                                         device="cuda"))
+        lane0 = cs.simulate_spray_ref(p, {k: v[0] for k, v in draws.items()}, policy=pol,
+                                      fault_jitter=cs.MC_JITTER)
+        equal = torch.equal(kern, plain) and tuple(kern[0].tolist()) == lane0
+        bad += not equal
+        diff = (kern != plain).any(1).nonzero()[:, 0].tolist()
+        print("OK " if equal else "BAD", "spray_sim", pol, json.dumps(
+            {"kernel_wall_ms": k_ms, "plain_wall_ms": p_ms, "lanes_differ": diff[:10],
+             "lane0_kernel": kern[0].tolist(), "lane0_numpy": lane0}), flush=True)
+    print("timing", json.dumps({"choose": cs.choose_timing(8, 64),
+                                "drain": cs.drain_timing(63, 8)}), flush=True)
+    card = [torch.from_numpy(draws[k]).cuda() for k in ("uf", "us", "ud", "jm")]
+    fn = lambda: cs.sim_kernel.spray_sim(p, *card, round_robin=False,  # noqa: E731
+                                         fault_jitter=cs.MC_JITTER)
+    print("spray_sim ms", cs.cuda_ms(fn, iters=3, warmup=1), "device", cs.device_ms(fn, "spray_sim", 2),
+          "bound", cs.sim_bound(p, cs.MC_SEEDS), flush=True)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
@@ -123,5 +188,7 @@ if __name__ == "__main__":
         sys.exit(check(sys.argv[2]))
     if mode == "time":
         sys.exit(time_kernels())
+    if mode == "engine":
+        sys.exit(engine())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

@@ -110,7 +110,11 @@ class TentCluster:
         engine_config: Optional[EngineConfig] = None,
         params: Optional[ClusterParams] = None,
         seed: int = 0,
+        device=None,
     ):
+        """`device` is where every engine's jitted core runs when
+        `engine_config.jit_core` is on (None = CUDA); not used otherwise."""
+        self.device = device
         self.params = params or ClusterParams()
         self.topology = Topology(spec)
         self._base_config = engine_config or EngineConfig()
@@ -194,7 +198,7 @@ class TentCluster:
             self._base_config, policy=role.policy, global_diffusion_weight=omega)
         return TentEngine(
             topology=self.topology, fabric=self.fabric,
-            config=cfg, seed=self.seed, name=role.name,
+            config=cfg, seed=self.seed, name=role.name, device=self.device,
         )
 
     @staticmethod

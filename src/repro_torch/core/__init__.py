@@ -1,8 +1,17 @@
 """TENT core: declarative slice-spraying data-movement engine (the paper's
 primary contribution), plus the discrete-event fabric it executes on in this
-reproduction. Host-side numpy, carried over from `repro.core` unchanged
-except that the jitted core (`EngineConfig.jit_core`) is not ported yet."""
+reproduction. Host-side numpy carried over from `repro.core`, with the
+jitted core (`EngineConfig.jit_core`) and the fused Monte Carlo sim as
+fp64 CUDA kernels and their plain torch versions."""
 from .engine import BatchResult, EngineConfig, TentEngine
+from .jit_core import (
+    EngineJitCore,
+    SprayProgram,
+    make_draws,
+    simulate_spray_ref,
+    spray_single,
+    spray_sweep,
+)
 from .calqueue import CalendarQueue
 from .fabric import FAR_WINDOW, Fabric, FabricConfig
 from .plan import (
@@ -23,7 +32,10 @@ from .scheduler import (
     StaticBest2Policy,
     TentPolicy,
     make_policy,
+    tent_choose_torch,
     tent_choose_wave,
+    tent_choose_wave_torch,
+    tent_scores_torch,
 )
 from .segments import Segment, SegmentManager, device_segment, file_segment, host_segment
 from .slicing import decompose
@@ -43,12 +55,14 @@ from .types import (
 __all__ = [
     "BatchResult", "CalendarQueue", "EngineConfig", "TentEngine", "FAR_WINDOW",
     "Fabric", "FabricConfig",
-    "Orchestrator",
+    "EngineJitCore", "SprayProgram", "make_draws",
+    "simulate_spray_ref", "spray_single", "spray_sweep", "Orchestrator",
     "RouteOption", "Stage", "StageCandidates", "TransportPlan",
     "build_stage_candidates", "HealthConfig", "HealthMonitor",
     "Candidate", "HashPolicy", "PinnedPolicy", "Policy", "RoundRobinPolicy",
-    "StaticBest2Policy", "TentPolicy", "make_policy",
-    "tent_choose_wave", "Segment", "SegmentManager", "device_segment",
+    "StaticBest2Policy", "TentPolicy", "make_policy", "tent_choose_torch",
+    "tent_choose_wave", "tent_choose_wave_torch",
+    "tent_scores_torch", "Segment", "SegmentManager", "device_segment",
     "file_segment", "host_segment", "decompose", "LinkTelemetry",
     "TelemetryStore", "DEFAULT_TIER_PENALTY", "FabricSpec", "LinkDesc",
     "NodeSpec", "Topology", "BatchState", "LinkClass", "Location",

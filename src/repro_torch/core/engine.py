@@ -90,10 +90,15 @@ class EngineConfig:
     # and completion-batch sizes.
     wave_complete: bool = True
     wave_min: Optional[int] = None
-    # `jit_core` routes the wave chooser and the batched completion drain
-    # through fixed-shape kernels in the reference package. Their torch
-    # twins are not ported yet: the field is kept so configs round-trip,
-    # and setting it raises NotImplementedError at engine construction.
+    # `jit_core` routes the two array kernels of the closed loop — the wave
+    # chooser and the batched completion drain — through fixed-shape fp64
+    # CUDA kernels (repro_torch.core.jit_core), padded to power-of-two shape
+    # buckets, bit-identical to the numpy path. The scalar/wave Python path
+    # remains in charge of small batches (own online-tuned crossover,
+    # mirroring `wave_min`), staged hops, retries, and app callbacks; engines
+    # with a FlightRecorder attached turn it off (see `attach_recorder`).
+    # The device is the engine's `device` argument (None = CUDA, which
+    # raises without a card). Off by default.
     jit_core: bool = False
     # Run the fabric event loop on the calendar queue (bucketed timestamp
     # wheel, `repro_torch.core.calqueue`) instead of the binary heap. Bit-identical
@@ -184,7 +189,11 @@ class TentEngine:
         config: Optional[EngineConfig] = None,
         seed: int = 0,
         name: str = "engine",
+        device=None,
     ):
+        """`device` is where the jitted core runs when `config.jit_core` is
+        on (None = CUDA, which raises without a card); it is not used
+        otherwise."""
         self.name = name  # tenant tag on a shared fabric (cluster deployments)
         if topology is None:
             topology = Topology(spec or FabricSpec())
@@ -226,12 +235,13 @@ class TentEngine:
             WAVE_MIN if self._adaptive_wave_min else max(1, self.config.wave_min))
         self._run_ewma = 0.0
         self._drain_ewma = 0.0
-        # jitted-core adapter (EngineConfig.jit_core): not ported yet, so the
-        # scalar/numpy path runs everywhere and asking for it is an error
-        if self.config.jit_core:
-            raise NotImplementedError(
-                "EngineConfig.jit_core: the fixed-shape chooser/drain kernels are "
-                "not ported to repro_torch yet (ROADMAP queue 1, EngineJitCore)")
+        # jitted-core adapter (EngineConfig.jit_core): None = scalar/numpy
+        # path everywhere. Requires the wave-capable TentPolicy — baseline
+        # ablation policies have no vectorized chooser to fuse.
+        self._jit = None
+        if self.config.jit_core and self._wave_policy:
+            from .jit_core import EngineJitCore
+            self._jit = EngineJitCore(self.policy, self.store, device=device)
         # armed only inside the batched failure drain: scalar `_issue` calls
         # append their post specs here instead of posting, and the drain
         # flushes them through one `post_many` (stream-identical to the
@@ -277,6 +287,18 @@ class TentEngine:
         self._rec = rec
         self.fabric.attach_recorder(rec)
         self.health.attach_recorder(rec, self.fabric, owner=self.name)
+        if self._jit is not None:
+            # Recorder appends (wave provenance snapshots, drain payloads)
+            # happen on the host path only. Tracing therefore forces the
+            # scalar/numpy path, loudly; reports stay identical because both
+            # paths are bit-exact (tests/test_torch_obs.py pins this).
+            import warnings
+            warnings.warn(
+                f"engine {self.name!r}: FlightRecorder attached with "
+                "jit_core enabled; disabling the jitted core for this "
+                "engine (record sites run on the host path only)",
+                RuntimeWarning, stacklevel=2)
+            self._jit = None
 
     def register_metrics(self, reg) -> None:
         """Expose the engine's scheduling counters as lazy gauges on a
@@ -512,7 +534,11 @@ class TentEngine:
                 # the line-11 charges mutate the queue array (one dict of
                 # fresh arrays per wave, nothing per slice)
                 prov = self.policy.wave_inputs(sc) if rec is not None else None
-                choices, queued_at = self.policy.choose_wave(sc, lengths)
+                jit = self._jit
+                if jit is not None and len(run) >= jit.min_batch:
+                    choices, queued_at = jit.choose_wave(sc, lengths)
+                else:
+                    choices, queued_at = self.policy.choose_wave(sc, lengths)
                 if rec is not None:
                     # slice refs, not ids: interning is deferred to the
                     # recorder's first read so the timed path stays O(1)
@@ -563,6 +589,9 @@ class TentEngine:
             self._wave_min = WAVE_MIN_CEIL
         else:
             self._wave_min = WAVE_MIN
+        if self._jit is not None:
+            # same structural signal drives the numpy/jit crossover
+            self._jit.tune(signal)
 
     @property
     def wave_min(self) -> int:
@@ -917,7 +946,11 @@ class TentEngine:
         lengths = np.asarray(len_c, dtype=np.int64)
         queued_at = np.asarray(queued_c, dtype=np.int64)
         t_obs = now - np.asarray(sched_c, dtype=np.float64)
-        store.on_complete_many(slots, lengths, queued_at, t_obs)
+        jit = self._jit
+        if jit is not None and len(slots) >= jit.min_batch:
+            jit.on_complete_many(slots, lengths, queued_at, t_obs)
+        else:
+            store.on_complete_many(slots, lengths, queued_at, t_obs)
         t_pred = np.asarray(pred_c, dtype=np.float64)
         if self.health.observe_many(slots, links_c, t_obs, t_pred):
             self._arm_probe_timer()

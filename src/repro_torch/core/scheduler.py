@@ -21,6 +21,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .telemetry import LinkTelemetry, TelemetryStore
 from .topology import DEFAULT_TIER_PENALTY
@@ -370,3 +371,188 @@ def tent_choose_wave(queued, global_local, global_remote, bandwidth, beta0,
         choices[k] = chosen
         queued_at[k] = q[chosen]
     return choices, queued_at, np.asarray(q, dtype=np.int64), rr
+
+
+# ---------------------------------------------------------------------------
+# Vectorized scoring (torch, float64) — the plain versions of the jitted
+# engine core's kernels (`repro_torch.kernels.tent_core`), op for op the
+# reference's `*_jnp` programs: one tensor op per reference op, in the same
+# order, never a fused one (`addcmul`, `lerp`, `baddbmm` round once where
+# the reference rounds twice). On float64 tensors they are bit-exact with
+# the numpy twins above on any device.
+# ---------------------------------------------------------------------------
+
+# Kernel-twin registry: every public *_torch function maps to its numpy
+# twin; a [target, reason] entry waives the parameter-name match where the
+# two sides expose deliberately different APIs.
+__torch_twins__ = {
+    "tent_scores_torch": ["TentPolicy.scores",
+                          "candidate-object API vs flat array inputs"],
+    "tent_choose_torch": ["TentPolicy.choose",
+                          "candidate-object API vs flat array inputs"],
+    "tent_choose_wave_torch": "tent_choose_wave",
+    "tent_on_complete_many_torch": [
+        "TelemetryStore.on_complete_many",
+        "carries EWMA state as arrays; the twin reads the store's views"],
+    "tent_choose_wave_padded_torch": [
+        "tent_choose_wave",
+        "padded fixed-shape variant adds the `valid` mask"],
+}
+
+
+def _f64(a, device=None):
+    return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+
+def tent_scores_torch(queued, bandwidth, beta0, beta1, penalty, length):
+    """score_d = P_tier(d) * (beta0_d + beta1_d * (A_d + L) / B_d)."""
+    queued = _f64(queued)
+    dev = queued.device
+    bandwidth, beta0, beta1, penalty = (
+        _f64(a, dev) for a in (bandwidth, beta0, beta1, penalty))
+    t_hat = beta0 + beta1 * (queued + length) / bandwidth
+    return penalty * t_hat
+
+
+def _window_pick(s, rr, gamma):
+    """Index of the rr-th (mod the window size) candidate whose score lies
+    within (1 + gamma) of the minimum, in candidate order; s.shape[0] when
+    the window is empty."""
+    s_min = s.min()
+    in_window = s <= (1.0 + gamma) * s_min
+    n_win = in_window.sum()
+    k = rr % n_win.clamp(min=1)
+    order = in_window.cumsum(0) - 1  # rank within window
+    arange = torch.arange(s.shape[0], device=s.device)
+    match = torch.where(in_window & (order == k), arange, s.shape[0])
+    return s_min, match.min()
+
+
+def tent_choose_torch(queued, bandwidth, beta0, beta1, penalty, length, rr,
+                      gamma=0.05, *, excluded=None):
+    """Argmin-with-tolerance-window selection (round-robin among the
+    near-ties indexed by `rr`). Returns the chosen device index as a 0-d
+    int64 tensor.
+
+    With `excluded` (a boolean mask) the soft-exclusion semantics of
+    `TentPolicy.choose` apply: excluded rails score inf, and when everything
+    is excluded the unmasked cost model breaks the deadlock. Returns -1 when
+    no candidate is tier-feasible at all (where the scalar policy raises)."""
+    s = tent_scores_torch(queued, bandwidth, beta0, beta1, penalty, length)
+    if excluded is not None:
+        ex = torch.as_tensor(excluded, dtype=torch.bool, device=s.device)
+        masked = torch.where(ex, torch.inf, s)
+        # all-excluded fallback: ignore the mask, keep the cost model
+        s = torch.where(torch.isinf(masked.min()), s, masked)
+    rr = torch.as_tensor(rr, dtype=torch.int64, device=s.device)
+    s_min, chosen = _window_pick(s, rr, gamma)
+    return torch.where(torch.isinf(s_min), -1, chosen)
+
+
+def _wave_step(q, rr, glocal, gremote, bandwidth, beta0, beta1, penalty, ex,
+               length, valid, gamma):
+    """One slice of the wave scan: score, mask, pick, charge (line 11)."""
+    q_eff = (q + glocal) + gremote
+    s = penalty * (beta0 + beta1 * (q_eff + length) / bandwidth)
+    s = torch.where(ex, torch.inf, s)
+    fallback = penalty * (beta0 + beta1 * (q + length) / bandwidth)
+    s = torch.where(torch.isinf(s.min()), fallback, s)
+    s_min, chosen = _window_pick(s, rr, gamma)
+    ok = torch.isfinite(s_min) & valid
+    safe = torch.where(ok, chosen, 0).view(1)
+    q = q.index_add(0, safe, torch.where(ok, length, 0.0).view(1))
+    return (q, rr + ok.to(torch.int64), torch.where(ok, chosen, -1),
+            torch.where(ok, q[safe[0]], 0.0))
+
+
+def _wave_scan(queued, global_local, global_remote, bandwidth, beta0, beta1,
+               penalty, excluded, lengths, valid, rr, gamma):
+    q = _f64(queued).clone()
+    dev = q.device
+    glocal, gremote, bandwidth, beta0, beta1, penalty, lengths = (
+        _f64(a, dev) for a in (global_local, global_remote, bandwidth, beta0,
+                               beta1, penalty, lengths))
+    ex = torch.as_tensor(excluded, dtype=torch.bool, device=dev)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    rr = torch.as_tensor(rr, dtype=torch.int64, device=dev)
+    choices, queued_at = [], []
+    for i in range(lengths.shape[0]):
+        q, rr, c, qa = _wave_step(q, rr, glocal, gremote, bandwidth, beta0,
+                                  beta1, penalty, ex, lengths[i], valid[i],
+                                  gamma)
+        choices.append(c)
+        queued_at.append(qa)
+    if not choices:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),
+                torch.zeros(0, dtype=torch.float64, device=dev), q, rr)
+    return torch.stack(choices), torch.stack(queued_at), q, rr
+
+
+def tent_choose_wave_torch(queued, global_local, global_remote, bandwidth,
+                           beta0, beta1, penalty, excluded, lengths, rr,
+                           gamma=0.05):
+    """Torch twin of `tent_choose_wave`: a loop over the wave carries the
+    charged queue vector and the round-robin counter. Returns
+    `(choices, queued_at_schedule, queued_out, rr_out)` like the numpy
+    kernel, as tensors (queues float64; infeasible slices yield -1, charge
+    nothing, and leave `rr` untouched)."""
+    lengths = _f64(lengths)
+    valid = torch.ones(lengths.shape[0], dtype=torch.bool, device=lengths.device)
+    return _wave_scan(queued, global_local, global_remote, bandwidth, beta0,
+                      beta1, penalty, excluded, lengths, valid, rr, gamma)
+
+
+def tent_on_complete_many_torch(beta0, beta1, queued, ewma_service,
+                                completions, ewma_alpha, beta0_alpha,
+                                bandwidth, slots, lengths, queued_at, t_obs):
+    """Torch twin of `TelemetryStore.on_complete_many`: a loop over the
+    completion batch applies the Eq. 1 EWMA feedback update one completion
+    at a time, so repeated slots within a batch see exactly the sequential
+    per-slot recurrence the scalar `LinkTelemetry.on_complete` produces.
+    Array arguments are full per-slot state vectors; `slots`/`lengths`/
+    `queued_at`/`t_obs` describe the batch in drain order. Returns the
+    updated `(beta0, beta1, queued, ewma_service, completions)` tensors,
+    all float64."""
+    b0 = _f64(beta0).clone()
+    dev = b0.device
+    b1, q, ew, comp = (_f64(a, dev).clone()
+                       for a in (beta1, queued, ewma_service, completions))
+    alpha, b0a, bw, lengths, queued_at, t_obs = (
+        _f64(a, dev) for a in (ewma_alpha, beta0_alpha, bandwidth, lengths,
+                               queued_at, t_obs))
+    slots = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+    for i in range(slots.shape[0]):
+        d = slots[i:i + 1]
+        length, qas, tob = lengths[i], queued_at[i], t_obs[i]
+        a = alpha[d]
+        x = (qas + length) / bw[d]
+        sample = ((tob - b0[d]) / torch.where(x > 0, x, 1.0)).clamp(0.05, 1e4)
+        b1d = torch.where(x > 0, (1 - a) * b1[d] + a * sample, b1[d])
+        resid = torch.clamp(tob - b1d * x, min=0.0)
+        b0d = (1 - b0a[d]) * b0[d] + b0a[d] * resid
+        b0[d] = b0d
+        b1[d] = b1d
+        q[d] = torch.clamp(q[d] - length, min=0.0)
+        ew[d] = (1 - a) * ew[d] + a * tob
+        comp[d] = comp[d] + 1
+    return b0, b1, q, ew, comp
+
+
+def tent_choose_wave_padded_torch(queued, global_local, global_remote,
+                                  bandwidth, beta0, beta1, penalty, excluded,
+                                  lengths, valid, rr, gamma):
+    """Fixed-shape variant of `tent_choose_wave_torch` for the jitted engine
+    core (`repro_torch.core.jit_core`), the plain version of the
+    `tent_choose_wave_padded` CUDA kernel: both axes are padded up to a
+    shape bucket.
+
+    Padded *candidates* carry `penalty=inf` and `excluded=True`: they score
+    inf under the normal mask and inf again under the all-excluded fallback
+    (the raw cost model keeps the inf penalty), so they can never enter the
+    gamma window. Padded *slices* are masked by `valid`: they charge
+    nothing, leave the round-robin counter untouched, and emit
+    choice -1 / queued_at 0 — the caller slices them off. On the valid
+    prefix the outputs are bit-identical to the unpadded twin, and
+    therefore to the numpy `tent_choose_wave`."""
+    return _wave_scan(queued, global_local, global_remote, bandwidth, beta0,
+                      beta1, penalty, excluded, lengths, valid, rr, gamma)

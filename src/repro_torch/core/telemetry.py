@@ -417,7 +417,7 @@ class TelemetryStore:
             (1 - alpha) * self.ewma_service_arr[idx] + alpha * t_obs)
 
     # -- jitted-core state transport (repro.core.jit_core) -------------------
-    def gather_complete_state(self, pad_to: int):
+    def gather_complete_state(self, pad_to: int, out=None):
         """Padded float64 copies of everything `on_complete_many` reads or
         writes, in the argument order of `tent_on_complete_many_jnp`:
         `(beta0, beta1, queued, ewma_service, completions, ewma_alpha,
@@ -425,16 +425,19 @@ class TelemetryStore:
         are inert scratch (alpha 0, bandwidth 1 — no NaNs, no visible
         updates), and row `n` is the designated scratch slot batch padding
         scatters into. Copies, never views — the kernel's write-back goes
-        through `scatter_complete_state`."""
+        through `scatter_complete_state`. With `out` (eight float64 arrays
+        of `pad_to` rows, such as a staging buffer's views) the copies are
+        written there."""
         n = self.n
-        out = []
-        for name, fill in (("beta0_arr", 0.0), ("beta1_arr", 1.0),
-                           ("queued_arr", 0.0), ("ewma_service_arr", 0.0),
-                           ("completions_arr", 0.0), ("ewma_alpha_arr", 0.0),
-                           ("beta0_alpha_arr", 0.0), ("bandwidth_arr", 1.0)):
-            arr = np.full(pad_to, fill, dtype=np.float64)
+        if out is None:
+            out = tuple(np.empty(pad_to, dtype=np.float64) for _ in range(8))
+        for arr, (name, fill) in zip(out, (
+                ("beta0_arr", 0.0), ("beta1_arr", 1.0),
+                ("queued_arr", 0.0), ("ewma_service_arr", 0.0),
+                ("completions_arr", 0.0), ("ewma_alpha_arr", 0.0),
+                ("beta0_alpha_arr", 0.0), ("bandwidth_arr", 1.0))):
             arr[:n] = getattr(self, name)[:n]
-            out.append(arr)
+            arr[n:] = fill
         return tuple(out)
 
     def scatter_complete_state(self, beta0, beta1, queued, ewma_service,

@@ -543,7 +543,7 @@ template <typename Kernel, typename T>
 cudaError_t launch(Kernel kernel, unsigned long long& configured, int smem, int rows_per_block,
                    int threads, const void* q, const void* k, const void* v, void* o,
                    Strides qs, Strides ks, Strides vs, Strides os, int B, int H, int K, int S,
-                   int D, int window, int causal, cudaStream_t stream) {
+                   int scale_dim, int window, int causal, cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -553,7 +553,9 @@ cudaError_t launch(Kernel kernel, unsigned long long& configured, int smem, int 
     if (err != cudaSuccess) return err;
     configured |= 1ull << dev;
   }
-  const float sl2e = (float)(1.0 / sqrt((double)D)) * LOG2E;
+  // the softmax scale of the caller's head dim, which may be smaller than
+  // the kernel's (the wrapper zero-pads D up to 64 or 128)
+  const float sl2e = (float)(1.0 / sqrt((double)scale_dim)) * LOG2E;
   const dim3 grid(H, B, (S + rows_per_block - 1) / rows_per_block);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                           static_cast<const T*>(v), static_cast<T*>(o), qs, ks,
@@ -563,9 +565,11 @@ cudaError_t launch(Kernel kernel, unsigned long long& configured, int smem, int 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, (batch, seq,
-// head) for each of q, k, v, o; the head_dim stride must be 1 and every row
-// must start 16-byte aligned. Returns a cudaError_t (0 on success); a launch
+// dtype: 0 = float32, 1 = bfloat16. D is 64 or 128; scale_dim is the head
+// dim whose 1/sqrt sets the softmax scale (D itself, or the true head dim of
+// inputs zero-padded up to D). Strides are in elements, (batch, seq, head)
+// for each of q, k, v, o; the head_dim stride must be 1 and every row must
+// start 16-byte aligned. Returns a cudaError_t (0 on success); a launch
 // the card refuses returns its error. Allocates nothing and does not
 // synchronize.
 extern "C" int flash_attention_fwd(
@@ -574,9 +578,10 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int B, int H, int K, int S, int D, int window, int causal,
+    int B, int H, int K, int S, int D, int window, int causal, int scale_dim,
     int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || scale_dim <= 0 || scale_dim > D)
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -584,7 +589,8 @@ extern "C" int flash_attention_fwd(
   static unsigned long long configured[4] = {0, 0, 0, 0};
 #define FA_LAUNCH(i, T, KERNEL, SMEM, ROWS, THREADS)                                        \
   return (int)launch<decltype(&KERNEL), T>(KERNEL, configured[i], SMEM, ROWS, THREADS, q, k, v, \
-                                           o, qs, ks, vs, os, B, H, K, S, D, window, causal, st)
+                                           o, qs, ks, vs, os, B, H, K, S, scale_dim, window, \
+                                           causal, st)
   if (dtype == 0 && D == 64)
     FA_LAUNCH(0, float, f32::flash_fwd_f32<64>, f32::Smem<64>::BYTES, f32::BQ, f32::THREADS);
   if (dtype == 0 && D == 128)

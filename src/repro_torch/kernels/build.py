@@ -36,30 +36,33 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def library_path(name: str, sources: Sequence[str], csrc: Path = CSRC) -> Path:
+def library_path(name: str, sources: Sequence[str], csrc: Path = CSRC,
+                 extra_flags: Sequence[str] = ()) -> Path:
     """Where the build of `sources` (file names under csrc/) lives: a name
     keyed by a hash of the sources, every `*.cuh` under csrc/ (included or
-    not) and the compiler flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    not) and the compiler flags, the library's own `extra_flags` among
+    them."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     for p in [csrc / s for s in sources] + sorted(csrc.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[str],
+                 extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into one shared library,
-    unless a build of the same sources, headers and flags exists, and load
-    it."""
+    with `extra_flags` after the common nvcc flags, unless a build of the
+    same sources, headers and flags exists, and load it."""
     paths = [CSRC / s for s in sources]
-    lib_path = library_path(name, sources)
+    lib_path = library_path(name, sources, extra_flags=extra_flags)
     key = str(lib_path)
     if key in _loaded:
         return _loaded[key]
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, paths)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

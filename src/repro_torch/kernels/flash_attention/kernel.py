@@ -26,12 +26,18 @@ f32 (17 MB in bf16): operations bound it in both types.
 Both skip the kv tiles the causal mask and the window rule out, so they do
 only the causal half's flops (plus the diagonal tiles' masked half), and
 take the heaviest q tiles first.
+
+The kernels are built for head dims 64 and 128. Any other D up to 128 (the
+reference's limit) is zero-padded up to the next of the two, which leaves
+Q K^T exact; the softmax scale stays the true D's, and the padded output
+columns are dropped.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..build import load_library
 from .ref import flash_attention_ref
@@ -53,7 +59,7 @@ def load() -> ctypes.CDLL:
         lib = load_library("flash_attention", ["flash_attention.cu"])
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -79,7 +85,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     if H % ks[2]:
         raise ValueError(f"q heads {H} must be a multiple of kv heads {ks[2]}")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+        raise ValueError(f"the kernel's head_dim is one of {_HEAD_DIMS}, got {D}")
     vec = 16 // q.element_size()  # the kernel copies rows in 16-byte pieces
     ptrs, strides = [], []
     for t in (q, k, v):
@@ -93,17 +99,45 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return ptrs, strides
 
 
+def padded_head_dim(D: int) -> int:
+    """The kernel head dim that takes D: D itself when it is 64 or 128, else
+    the next of the two; D above 128 is refused, as the reference's kernel
+    refuses it."""
+    for width in _HEAD_DIMS:
+        if 1 <= D <= width:
+            return width
+    raise ValueError(f"head_dim {D} is not in 1..{_HEAD_DIMS[-1]}")
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors q (B,S,H,D), k/v (B,S,K,D). Raises
-    if the kernel cannot be built or launched."""
+    """Launch the kernel on CUDA tensors q (B,S,H,D), k/v (B,S,K,D), D up
+    to 128: a D other than 64 or 128 goes in zero-padded to the next of the
+    two (`padded_head_dim`) with the true D's softmax scale, and comes out
+    as its first D columns. Raises if the kernel cannot be built or
+    launched."""
+    D = q.shape[-1]
+    width = padded_head_dim(D)
+    if width == D:
+        return _launch(q, k, v, causal=causal, window=window, scale_dim=D)
+    pad = (0, width - D)
+    out = _launch(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), causal=causal, window=window,
+                  scale_dim=D)
+    return out[..., :D].contiguous()
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int,
+            scale_dim: int) -> torch.Tensor:
+    """One launch on q, k, v whose head dim the kernel takes, with the
+    softmax scale of head dim `scale_dim`."""
     global launches
     ptrs, strides = _check(q, k, v)
     B, S, H, D = q.shape
     fn = load().flash_attention_fwd
     out = torch.empty_like(q)  # a fifth of torch.empty's host time; its strides go along
     args = (*ptrs, out.data_ptr(), *strides, *out.stride()[:3],
-            B, H, k.shape[2], S, D, int(window), int(bool(causal)), _DTYPES[q.dtype])
+            B, H, k.shape[2], S, D, int(window), int(bool(causal)), int(scale_dim),
+            _DTYPES[q.dtype])
     index = q.device.index
     # the raw handle of the current stream (what torch.cuda.current_stream(index)
     # .cuda_stream returns, without building a Stream object each call)

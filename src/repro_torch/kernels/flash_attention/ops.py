@@ -4,8 +4,9 @@ CPU tensors go to the plain version (`ref.flash_attention_ref`), as the
 reference's wrapper runs its kernel in interpret mode on the CPU. CUDA
 tensors go to the Hopper kernel, which reads the (B, S, H, D) layout
 through strides and masks the ragged tail itself, so nothing is
-transposed or padded here. There is no fallback: if the kernel cannot be
-built or launched, this raises.
+transposed here; a head dim other than 64 or 128 (any D up to 128, as the
+reference takes) is zero-padded by the kernel's binding. There is no
+fallback: if the kernel cannot be built or launched, this raises.
 """
 from __future__ import annotations
 

@@ -46,9 +46,11 @@ mamba2's shape), which the bound counts once too. Inputs arrive by
 16-byte `cp.async` where pointers and strides allow it, else by narrower
 loads in the kernels.
 
-`launches` counts calls of `ssd_scan` that launched the kernels, one per
-Mamba2 layer of a prefill, though each call launches three kernels (four
-in f32).
+`launches` counts calls of the public wrapper (`ops.ssd_chunked`) that
+launched the kernels, one per Mamba2 layer of a prefill, though each call
+launches three kernels (four in f32). A head dim P > 64 runs one
+`ssd_scan` per block of 64 columns, and only the first block counts
+(`count=False` for the others).
 """
 from __future__ import annotations
 
@@ -112,8 +114,8 @@ def _check(x, a, B_in, C_in, initial_state, chunk) -> None:
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, B_in: torch.Tensor, C_in: torch.Tensor, *,
-             chunk: int, initial_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             chunk: int, initial_state: Optional[torch.Tensor] = None,
+             count: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernels on CUDA tensors x (B,S,H,P), a (B,S,H), B and C
     (B,S,N), an optional fp32 initial state (B,H,P,N). Returns y (B,S,H,P)
     in x's dtype and the final state (B,H,P,N) in fp32. Raises if the
@@ -145,7 +147,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B_in: torch.Tensor, C_in: torch.T
     else:
         with torch.cuda.device(index):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    launches += 1
+    launches += count
     if err != 0:
         raise RuntimeError(f"ssd scan kernels launch failed: cudaError {err}")
     return y, fin

@@ -1,8 +1,14 @@
 """Declarative scenarios, carried over from `repro.scenarios`: one spec
 consumed by the engine and the scenario runner, the 25-entry library, the
-workload executors. The Monte Carlo seed sweep is not ported yet."""
+workload executors, and the Monte Carlo seed sweep."""
 from .library import SCENARIOS, get, names
 from .runner import PolicyReport, ScenarioReport, ScenarioRunner, run_scenario
+from .sweep import (
+    MonteCarloSweep,
+    SweepPolicyDist,
+    SweepReport,
+    compile_spray_program,
+)
 from .spec import (
     BackgroundSpec,
     CheckpointWorkload,
@@ -39,7 +45,8 @@ from .workloads import (
 
 __all__ = [
     "SCENARIOS", "get", "names", "PolicyReport", "ScenarioReport",
-    "ScenarioRunner", "run_scenario",
+    "ScenarioRunner", "run_scenario", "MonteCarloSweep", "SweepPolicyDist",
+    "SweepReport", "compile_spray_program",
     "BackgroundSpec", "CheckpointWorkload",
     "ClosedLoopWorkload", "ClusterWorkload", "EngineParams", "Expectations",
     "FaultEvent", "ScenarioSpec", "ServeWorkload", "ServingWorkload",

@@ -89,8 +89,12 @@ class ScenarioReport:
 
 
 class ScenarioRunner:
-    def __init__(self, spec: ScenarioSpec):
+    def __init__(self, spec: ScenarioSpec, *, device=None):
+        """`device` is where the engines' jitted core runs when the spec
+        turns `jit_core` on (None = CUDA, which raises without a card); it is
+        not used otherwise."""
         self.spec = spec
+        self.device = device
 
     # ------------------------------------------------------------- engine
     def build_engine(self, policy: str,
@@ -108,6 +112,7 @@ class ScenarioRunner:
             spec.topology.to_fabric_spec(),
             config=spec.engine.to_engine_config(policy),
             seed=spec.seed,
+            device=self.device,
         )
         if recorder is not None:
             # before the environment install, so schedule-time fault records
@@ -193,7 +198,7 @@ class ScenarioRunner:
         cluster = TentCluster(
             spec.topology.to_fabric_spec(), roles,
             engine_config=spec.engine.to_engine_config(base),
-            params=params, seed=spec.seed,
+            params=params, seed=spec.seed, device=self.device,
         )
         if recorder is not None:
             cluster.attach_recorder(recorder)
@@ -202,10 +207,10 @@ class ScenarioRunner:
 
     # ------------------------------------------------------------- one run
     def run_policy(self, policy: str, *, recorder=None) -> PolicyReport:
-        """Run one policy. `recorder` optionally attaches a flight
-        recorder (any object with the reference `FlightRecorder`'s record
-        interface; the port has none of its own yet) before the workload
-        starts; attaching one never changes the resulting report. All three workload kinds surface their engine/
+        """Run one policy. `recorder` optionally attaches a
+        `repro_torch.obs.FlightRecorder` before the workload starts; attaching
+        one never changes the resulting report (parity-pinned in
+        tests/test_torch_obs.py). All three workload kinds surface their engine/
         cluster counters through one `MetricsRegistry` collection, so
         `ScenarioReport.extra` carries a uniform counter surface.
 

@@ -29,9 +29,22 @@ def test_key_changes_with_a_source_and_names_the_library(tmp_path):
     assert after.suffix == ".so"
 
 
+def test_key_changes_with_a_library_s_own_flags(tmp_path):
+    csrc = _csrc(tmp_path)
+    plain = build.library_path("k", ["k.cu"], csrc)
+    strict = build.library_path("k", ["k.cu"], csrc, extra_flags=("--fmad=false",))
+    assert plain != strict
+    assert strict == build.library_path("k", ["k.cu"], csrc, extra_flags=("--fmad=false",))
+
+
 def test_shipped_sources_have_their_headers():
     """Every kernel source in the package, and the header the wgmma kernels
-    share, enters the key of the shipped libraries."""
+    share, enters the key of the shipped libraries; the fp64 engine kernels
+    build without multiply-add contraction."""
+    from repro_torch.kernels.spray_sim import kernel as sim_kernel
+    from repro_torch.kernels.tent_core import kernel as tc_kernel
+
     assert (build.CSRC / "wgmma.cuh").exists()
-    for name in ("flash_attention", "ssd_scan", "kv_pack"):
+    for name in ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim"):
         assert build.library_path(name, [f"{name}.cu"]).name.startswith(f"{name}-")
+    assert tc_kernel.EXTRA_FLAGS == sim_kernel.EXTRA_FLAGS == ("--fmad=false",)

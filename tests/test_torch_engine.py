@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import Location as RefLocation
 from repro.core import MemoryKind as RefKind
@@ -93,6 +94,11 @@ def test_engine_bit_identical_across_flap(sizes):
     assert ref["slices_retried"] > 0
 
 
-def test_jit_core_is_refused():
-    with pytest.raises(NotImplementedError, match="jit_core"):
+def test_jit_core_is_refused(monkeypatch):
+    """jit_core runs on the engine's device, CUDA unless the caller asks for
+    the CPU: without a card it is refused, never run quietly on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         TentEngine(FabricSpec(), config=EngineConfig(jit_core=True))
+    eng = TentEngine(FabricSpec(), config=EngineConfig(jit_core=True), device="cpu")
+    assert eng._jit is not None and eng._jit.device.type == "cpu"

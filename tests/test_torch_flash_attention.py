@@ -196,3 +196,37 @@ def test_bf16_serving_gate_rehearsed_with_the_emulation(monkeypatch):
     assert len(calls) == cfg.num_layers  # the yardstick and the plain prefill skip the kernel
     assert np.isfinite(kernel_dist) and np.isfinite(plain_dist) and plain_dist > 0
     assert kernel_dist <= cs.BF16_GATE * plain_dist, (kernel_dist, plain_dist)
+
+
+@pytest.mark.parametrize("D,width", [(56, 64), (80, 128)])
+def test_padded_head_dim_through_the_binding(monkeypatch, D, width):
+    """A head dim the kernels are not built for (qwen2-0.5b-smoke's 56, and
+    80) goes in zero-padded to the next built width with the true D's
+    softmax scale, and comes out as its first D columns: the binding's path
+    with the launch emulated, against the reference's Pallas kernel in
+    interpret mode at D itself."""
+    calls = []
+
+    def emulated_launch(q, k, v, *, causal, window, scale_dim):
+        calls.append((q.shape[-1], scale_dim))
+        assert (k[..., scale_dim:] == 0).all() and (v[..., scale_dim:] == 0).all()
+        # the plain version scales by the padded width's 1/sqrt: rescale q
+        # so that the scores take the true D's scale
+        return flash_attention_ref(q * (q.shape[-1] / scale_dim) ** 0.5, k, v, causal=causal,
+                                   window=window)
+
+    monkeypatch.setattr(fa_kernel, "_launch", emulated_launch)
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(6, 1, 200, 4, 2, D), "float32")
+    got = fa_kernel.flash_attention_bshd(tq, tk, tv, causal=True)
+    assert calls == [(width, D)]
+    assert got.shape == (1, 200, 4, D) and got.is_contiguous()
+    want = ref_flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    np.testing.assert_allclose(_np(got), _np(flash_attention_ref(tq, tk, tv)), **TOL["float32"])
+
+
+def test_head_dims_the_kernel_takes():
+    assert [fa_kernel.padded_head_dim(d) for d in (1, 56, 64, 65, 80, 128)] == [
+        64, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_kernel.padded_head_dim(129)

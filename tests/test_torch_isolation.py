@@ -31,8 +31,18 @@ for m in mods:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({"n": len(mods), "bad": bad}))
+print(json.dumps({"n": len(mods), "mods": mods, "bad": bad}))
 """
+
+# the modules that carry the engine's device paths and the observability
+# tools; each must be among those imported without jax or the reference
+ENGINE_MODULES = [
+    "repro_torch.core.jit_core", "repro_torch.kernels.tent_core.kernel",
+    "repro_torch.kernels.tent_core.ops", "repro_torch.kernels.tent_core.ref",
+    "repro_torch.kernels.spray_sim.kernel", "repro_torch.kernels.spray_sim.ops",
+    "repro_torch.kernels.spray_sim.ref", "repro_torch.scenarios.sweep",
+    "repro_torch.obs.recorder", "repro_torch.obs.trace", "repro_torch.obs.explain",
+]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -42,6 +52,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     assert seen["n"] >= 30  # every module of the package was imported
+    assert set(ENGINE_MODULES) <= set(seen["mods"])
     assert seen["bad"] == [], f"repro_torch pulled in: {seen['bad']}"
 
 

@@ -3,8 +3,9 @@ toggles the reference pins flipped away from their defaults (`wave`,
 `candidate_cache`, `wave_complete` off, `calendar_queue` on; the reference
 pins each in its own parity test), on three scenarios that exercise a rail
 flap, HiCache promotion and a closed serving loop. Bit for bit.
-`jit_core` is left out: the port refuses it until its kernels are ported
-(`test_torch_scenarios.py::test_jit_core_is_refused`)."""
+`jit_core` on is held against the reference's jit-off reports over the
+whole library (the reference's own jitted core does not import under this
+jax), with the port's core on the CPU: the kernels' plain versions."""
 import dataclasses
 
 import pytest
@@ -24,4 +25,14 @@ def test_toggled_report_matches_reference(name, field, value):
     spec = dataclasses.replace(spec, engine=dataclasses.replace(spec.engine, **{field: value}))
     want = ref.ScenarioRunner(spec).run().to_dict()
     got = port.ScenarioRunner(port.ScenarioSpec.from_json(spec.to_json())).run().to_dict()
+    assert got["policies"] == want["policies"]
+
+
+@pytest.mark.parametrize("name", ref.names())
+def test_jit_core_report_matches_reference(name):
+    spec = ref.get(name)
+    want = ref.ScenarioRunner(spec).run().to_dict()
+    on = port.ScenarioSpec.from_json(spec.to_json())
+    on = dataclasses.replace(on, engine=dataclasses.replace(on.engine, jit_core=True))
+    got = port.ScenarioRunner(on, device="cpu").run().to_dict()
     assert got["policies"] == want["policies"]

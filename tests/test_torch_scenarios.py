@@ -5,13 +5,13 @@ has its own file, the cluster scenarios theirs), the port's
 `ScenarioReport.to_dict()["policies"]` equals the reference's exactly: the
 host engine, serving, HiCache and checkpoint layers are float64 numpy in
 both packages, so the bar is bit-identity. The spec crosses between the
-packages as JSON. The engine toggles are checked in
-`test_torch_scenario_toggles.py`; `jit_core` is refused by the port until
-its kernels are ported.
+packages as JSON. The engine toggles, `jit_core` among them, are checked
+in `test_torch_scenario_toggles.py`.
 """
 import dataclasses
 
 import pytest
+import torch
 
 import repro.scenarios as ref
 import repro_torch.scenarios as port
@@ -52,11 +52,17 @@ def test_report_matches_reference(name):
     assert got["spec"] == want["spec"]
 
 
-def test_jit_core_is_refused():
+def test_jit_core_is_refused(monkeypatch):
+    """The jitted core runs on the card unless the caller asks for the CPU:
+    without a card, jit_core is refused, never run quietly on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = port.get("single_rail_flap")
     spec = dataclasses.replace(spec, engine=dataclasses.replace(spec.engine, jit_core=True))
-    with pytest.raises(NotImplementedError, match="jit_core"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.ScenarioRunner(spec).run_policy("tent")
+    on_cpu = port.ScenarioRunner(spec, device="cpu").run_policy("tent").to_dict()
+    assert on_cpu == port.ScenarioRunner(port.get("single_rail_flap")).run_policy(
+        "tent").to_dict()
 
 
 def test_sanitized_run_matches(monkeypatch):

@@ -286,3 +286,56 @@ def test_kernel_emulation_f32_matches_plain_version():
     got_y, got_fin = kernel_emulation(tx, ta, tb, tc, chunk=64, initial_state=ts)
     np.testing.assert_allclose(_np(got_y), _np(want_y), **TOL["float32"])
     np.testing.assert_allclose(_np(got_fin), _np(want_fin), **TOL["float32"])
+
+
+def _emulated_kernel(calls):
+    def scan(x, a, B_in, C_in, *, chunk, initial_state=None, count=True):
+        assert x.shape[-1] <= ssd_kernel.MAX_HEADDIM
+        assert len({t.dtype for t in (x, a, B_in, C_in)}) == 1
+        calls.append((x.shape[-1], x.dtype))
+        ssd_kernel.launches += count
+        return ssd_scan_ref(x, a, B_in, C_in, initial_state)
+    return scan
+
+
+def test_kernel_path_splits_wide_heads(monkeypatch):
+    """P = 128 goes to the kernel as two blocks of 64 columns, the initial
+    state split with them, and counts as one launch; the joined result is
+    the plain version's, and the reference's Pallas kernel's (interpret
+    mode)."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    calls = []
+    monkeypatch.setattr(ssd_kernel, "ssd_scan", _emulated_kernel(calls))
+    monkeypatch.setattr(ssd_kernel, "launches", 0)
+    arrays = _inputs(11, 1, 64, 2, 128, 32, with_state=True)
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(arrays)
+    y, fin = ops.kernel_scan(tx, ta, tb, tc, chunk=32, initial_state=ts)
+    assert calls == [(64, torch.float32), (64, torch.float32)]
+    assert ssd_kernel.launches == 1
+    want_y, want_fin = ref_ssd_kernel(jx, ja, jb, jc, chunk=32, initial_state=js)
+    np.testing.assert_allclose(_np(y), _np(want_y), **TOL["float32"])
+    np.testing.assert_allclose(_np(fin), _np(want_fin), **TOL["float32"])
+    ry, rfin = ssd_scan_ref(tx, ta, tb, tc, ts)
+    assert torch.equal(y, ry) and torch.equal(fin, rfin)
+
+
+def test_kernel_path_widens_mixed_types(monkeypatch):
+    """bfloat16 x with float32 a, B and C (the reference casts each input to
+    fp32 on its own): the kernel gets one type, float32, each input widened
+    exactly, and y comes back in x's type."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    calls = []
+    monkeypatch.setattr(ssd_kernel, "ssd_scan", _emulated_kernel(calls))
+    tx, ta, tb, tc = (torch.from_numpy(a) for a in _inputs(12, 2, 40, 2, 16, 32))
+    tx = tx.bfloat16()
+    y, fin = ops.kernel_scan(tx, ta, tb, tc, chunk=64)
+    assert calls == [(16, torch.float32)]
+    want_y, want_fin = ssd_scan_ref(tx.float(), ta, tb, tc)
+    assert torch.equal(y, want_y) and torch.equal(fin, want_fin)
+    jx, ja, jb, jc = (jnp.asarray(np.asarray(t.float()), dt) for t, dt in
+                      ((tx, jnp.bfloat16), (ta, jnp.float32), (tb, jnp.float32),
+                       (tc, jnp.float32)))
+    ref_y, _ = ref_ssd_kernel(jx, ja, jb, jc, chunk=64)
+    np.testing.assert_allclose(_np(y.bfloat16()), _np(ref_y), **TOL["bfloat16"])
