@@ -46,7 +46,9 @@ Phases, one JSON line each on stdout:
            with the crossover forced to 1, must launch both kernels
            (`tent_choose_wave_padded`, `tent_on_complete_many`); both held
            bit for bit against their torch twins on the card and the numpy
-           twins on randomized padded inputs at buckets 8-1024, an
+           twins on randomized padded inputs at buckets 8-1024, at the
+           chooser's seam between its one-warp kernel (up to 32 candidates)
+           and its block kernel (1, 31, 32 and 33 candidates), an
            all-excluded wave, padding rows and the scratch row; the 13
            library scenarios in which a kernel engages, with jit_core on,
            equal their jit-off reports (the tests run all 25 on the CPU),
@@ -57,17 +59,19 @@ Phases, one JSON line each on stdout:
            before the sweep's worker processes start; the 13 scenarios'
            walls with jit_core off and on, taken after they end.
   mc_sweep the Monte Carlo sweep (`MonteCarloSweep`, the `spray_sim`
-           kernel, one seed lane a thread) over the five scenarios of
+           kernel, a thread group a seed lane) over the five scenarios of
            BENCH_mc.json at 64 seeds and fault_jitter 0.25: every lane equal
            to the plain torch sim on the card, seeds 0 and 1 equal to the
            numpy twin (both in worker processes, which time nothing that is
            reported), single_rail_flap's report equal to the CPU's, each
-           report ok, tent's throughput P50 within 2 % of BENCH_mc.json's.
+           report ok, tent's throughput P50 within 2 % of BENCH_mc.json's;
+           the eight other sweepable library programs, 3 lanes each under
+           both policies, equal to the numpy twin; each launch plan.
            Then, the workers ended: the flap's tent lanes against the plain
            sim and one numpy lane, each timed; the five sweeps again, timed,
            with the draws timed apart, their reports byte-equal to the
            first pass's; a 4096-seed flap_storm sweep timed beside the
-           plain sim on the card.
+           plain sim on the card, and its kernel alone.
 
 Then a {"kernels": [...]} summary and, last, {"ok": true, "device": ...}.
 Any failed check raises and the script exits non-zero. Without a card it
@@ -218,6 +222,16 @@ MC_SCENARIOS = ("single_rail_flap", "flap_storm", "correlated_outage", "degrade_
                 "disagg_prefill_decode")  # the five of BENCH_mc.json
 MC_SEEDS, MC_JITTER, MC_NUMPY_SEEDS, MC_BAND = 64, 0.25, (0, 1), 0.02
 MC_BIG, MC_BIG_SCENARIO = 4096, "flap_storm"
+# the sweepable library programs outside BENCH_mc.json's five: every lane of
+# MC_OTHER_SEEDS held against the numpy twin under both policies
+MC_OTHER = ("numa_skew_incast", "hetero_bandwidth_rails", "multi_tenant_contention",
+            "elephant_mice_mix", "serving_production_stream", "mnnvl_rack_kv", "ascend_ub_kv",
+            "uniform_spray")
+MC_OTHER_SEEDS = 3
+# the wave chooser's seam between its warp kernel (pc <= 32) and its block
+# kernel: candidates padded to pc = 8, 32, 32 and 64, at these slice counts
+CHOOSE_SEAM = (1, 31, 32, 33)
+CHOOSE_SEAM_SLICES = (1, 31, 32, 33, 64, 100)
 # worker processes of the mc_sweep phase: the plain sim on the card (one
 # process a sweep; it is bound by its host dispatch) and the numpy twin
 MC_WORKERS = 7
@@ -225,6 +239,9 @@ MC_WORKERS = 7
 # ssd_chunk_scan, and in f32 ssd_chunk_cb
 SSD_PREFIX = "ssd_"
 FLASH_NAME = "flash_fwd"  # flash_fwd_f32, flash_fwd_bf16
+# the wave chooser's kernels: tent_choose_wave_warp (pc <= 32) and
+# tent_choose_wave_padded (the block kernel)
+CHOOSE_NAME = "tent_choose_wave"
 
 
 def emit(obj) -> None:
@@ -1231,6 +1248,9 @@ def jit_kernel_checks() -> dict:
     padding = check_choose(one, 0, 0.05)
     padding_never = bool((c[:3] == 0).all() and rro == 3 and qo[0] == 100 + 3 * 4096
                          and padding[0])
+    seam = {(n_c, n_s): check_choose(_pad_choose_args(rng, n_c, n_s), int(rng.integers(0, 1000)),
+                                     float(rng.choice([0.0, 0.05, 0.2])))
+            for n_c in CHOOSE_SEAM for n_s in CHOOSE_SEAM_SLICES}
     drains = [(int(rng.integers(1, 7)), int(rng.integers(1, 40))) for _ in range(30)]
     drains += [(16, 64), (100, 256), (1000, 1000), (6, 1024)]
     drain = [check_drain(int(rng.integers(0, 1 << 30)), n_links, _drain_batch(rng, n_links, m))
@@ -1241,17 +1261,27 @@ def jit_kernel_checks() -> dict:
     bad = [i for i, (ok, _) in enumerate(choose) if not ok]
     bad_excluded = [i for i, (ok, _) in enumerate(excluded) if not ok]
     bad_drain = [i for i, (ok, _) in enumerate(drain) if not ok]
+    bad_seam = [str(k) for k, (ok, _) in seam.items() if not ok]
     res = {"choose_cases": len(sizes), "choose_mismatches": bad,
+           "seam_cases": len(seam), "seam_pc": sorted({_bucket(n_c) for n_c in CHOOSE_SEAM}),
+           "seam_mismatches": bad_seam,
            "all_excluded_cases": len(excluded), "all_excluded_mismatches": bad_excluded,
            "padding_rows_never_selected": padding_never,
            "drain_cases": len(drains), "drain_mismatches": bad_drain,
            "scratch_row_survives": scratch[0],
-           "choose_max_abs_err": max(err for _, err in choose + excluded + [padding]),
+           "choose_max_abs_err": max(err for _, err in choose + excluded + [padding]
+                                     + list(seam.values())),
            "drain_max_abs_err": max(err for _, err in drain + [scratch]),
            "buckets": sorted({_bucket(n) for pair in sizes + drains for n in pair})}
-    if bad or bad_excluded or bad_drain or not (padding_never and scratch[0]):
+    if bad or bad_excluded or bad_drain or bad_seam or not (padding_never and scratch[0]):
         raise AssertionError(f"the engine kernels disagree with their twins: {res}")
     return res
+
+
+def _per_step(timing: dict, steps_key: str) -> dict:
+    """`timing` with `us_per_step`: the kernel's ms over its dependent serial
+    steps, in microseconds."""
+    return {**timing, "us_per_step": timing["kernel_ms"] * 1e3 / max(timing[steps_key], 1)}
 
 
 def _host_ms(fn, iters):
@@ -1281,16 +1311,18 @@ def choose_timing(n_c, n_s) -> dict:
     nbytes = 8 * (tc_kernel.choose_in_size(pc, ps) + tc_kernel.choose_out_size(pc, ps))
     flops = 8.0 * pc * ps
     t_b, t_o = nbytes / HBM_BPS, flops / PEAK_F64
-    return {"candidates": n_c, "slices": n_s, "pc": pc, "ps": ps, "serial_steps": ps,
+    return _per_step({
+            "candidates": n_c, "slices": n_s, "pc": pc, "ps": ps, "serial_steps": ps,
+            "kernel": "warp" if pc <= 32 else "block",
             "kernel_ms": cuda_ms(kern),
-            **_device_fields(kern, "tent_choose_wave_padded"),
+            **_device_fields(kern, CHOOSE_NAME),
             "plain_ms": cuda_ms(lambda: tent_choose_wave_padded_torch(*card, 7, 0.05),
                                 iters=3, warmup=1),
             "numpy_ms": _host_ms(lambda: tent_choose_wave(*args, 7, gamma=0.05), 5),
             "adapter_ms": _host_ms(lambda: tc_ops.choose_wave_padded_np(
                 padded, 7, 0.05, staging), 20),
             "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": None}
+            "library_ms": None}, "serial_steps")
 
 
 def drain_timing(n_links, m) -> dict:
@@ -1316,7 +1348,8 @@ def drain_timing(n_links, m) -> dict:
                             device=DEV)
     nbytes = 8 * (8 * ps + 4 * pm + 5 * ps)
     t_b, t_o = nbytes / HBM_BPS, 16.0 * m / PEAK_F64
-    return {"slots": n_links, "completions": m, "ps": ps, "pm": pm,
+    return _per_step({
+            "slots": n_links, "completions": m, "ps": ps, "pm": pm,
             "serial_steps": int(np.bincount(batch[0]).max()),
             "kernel_ms": cuda_ms(kern),
             **_device_fields(kern, "tent_on_complete_many"),
@@ -1325,7 +1358,7 @@ def drain_timing(n_links, m) -> dict:
             "numpy_ms": _host_ms(lambda: numpy_store.on_complete_many(*batch), 5),
             "adapter_ms": _host_ms(lambda: adapter.on_complete_many(*batch), 20),
             "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": None}
+            "library_ms": None}, "serial_steps")
 
 
 def jit_core_main_path() -> dict:
@@ -1460,6 +1493,21 @@ def _plain_lanes(name, policy, n_seeds, device):
     return out, time.perf_counter() - t0
 
 
+def sim_plan(p, n_lanes) -> dict:
+    """The spray_sim kernel's launch for n_lanes lanes of p on this card:
+    threads a lane (G), windows in registers or shared memory, lanes a
+    block, blocks. The binding's shared-memory size of a lane must equal the
+    built library's own (`spray_sim_group_bytes`)."""
+    plan = sim_kernel.plan_for(p, n_lanes, sim_kernel._n_sms(torch.device(DEV)))
+    lib_bytes = sim_kernel.load().spray_sim_group_bytes(
+        p.n_rails, p.wave, p.fail_start.shape[1], p.degs_start.shape[1], p.degd_start.shape[1],
+        int(plan.fault_cap == 0))
+    if lib_bytes != plan.group_bytes:
+        raise AssertionError(f"spray_sim's layout is {lib_bytes} bytes a lane in the library, "
+                             f"{plan.group_bytes} in the binding")
+    return {**dataclasses.asdict(plan), "threads_per_block": plan.threads_per_block}
+
+
 def sim_bound(p, n_lanes) -> tuple:
     """Least time for a sweep: the draws read once and the outputs written
     once; per lane and slice the tent score over D + 1 rails (5 fp64
@@ -1481,7 +1529,8 @@ TIMED_PLAIN = ("single_rail_flap", "tent")
 def start_mc_jobs(pool) -> dict:
     """The sweep's host-heavy checks, started in worker processes: the plain
     sim on the card for each scenario and policy but TIMED_PLAIN (the
-    longest first), the CPU sweep of the flap, and the numpy twin's lanes.
+    longest first), the CPU sweep of the flap, and the numpy twin's lanes
+    (also those of MC_OTHER).
     No time they take is reported as a time of the port: seven processes
     share the card and the host's cores."""
     order = sorted(((n, pol) for n in MC_SCENARIOS for pol in SWEEP_POLICIES
@@ -1490,12 +1539,42 @@ def start_mc_jobs(pool) -> dict:
     return {"plain": {key: pool.submit(_plain_lanes, *key, MC_SEEDS, DEV) for key in order},
             "cpu_json": pool.submit(_cpu_sweep_json, "single_rail_flap", MC_SEEDS),
             "lanes": {(n, pol, s): pool.submit(_numpy_lane, n, pol, s)
-                      for n in MC_SCENARIOS for pol in SWEEP_POLICIES for s in MC_NUMPY_SEEDS}}
+                      for n in MC_SCENARIOS for pol in SWEEP_POLICIES for s in MC_NUMPY_SEEDS},
+            "other": {(n, pol, s): pool.submit(_numpy_lane, n, pol, s)
+                      for n in MC_OTHER for pol in SWEEP_POLICIES
+                      for s in range(MC_OTHER_SEEDS)}}
 
 
 def mc_workers():
     return ProcessPoolExecutor(MC_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                                initializer=_worker_init)
+
+
+def other_programs(jobs: dict) -> dict:
+    """spray_sim on the sweepable library programs outside BENCH_mc.json's
+    five (one launch a program and policy, MC_OTHER_SEEDS lanes), every lane
+    bit-equal to the numpy twin's (from the worker processes); with the
+    launch plan each ran with. Times nothing."""
+    rows, failed, errs = {}, [], []
+    for name in MC_OTHER:
+        spec = get(name)
+        p = compile_spray_program(spec)
+        draws = stack_draws(p, MC_OTHER_SEEDS, base_seed=spec.seed)
+        row = {"rails": p.n_rails, "rounds": p.rounds, "wave": p.wave,
+               "windows": [p.fail_start.shape[1], p.degs_start.shape[1], p.degd_start.shape[1]],
+               "plan": sim_plan(p, MC_OTHER_SEEDS)}
+        for pol in SWEEP_POLICIES:
+            k = spray_sim(p, draws, policy=pol, fault_jitter=MC_JITTER, device=DEV).cpu().numpy()
+            numpy = [jobs["other"][(name, pol, s)].result()[0] for s in range(MC_OTHER_SEEDS)]
+            equal = all(tuple(k[s].tolist()) == lane for s, lane in enumerate(numpy))
+            errs.append(max_abs_diff([(k[s], lane) for s, lane in enumerate(numpy)]))
+            row[f"{pol}_lanes_equal_numpy_twin"] = equal
+            if not equal:
+                failed.append(f"{name}/{pol}")
+        rows[name] = row
+    if failed:
+        raise AssertionError(f"spray_sim differs from the numpy twin on {failed}: {rows}")
+    return {"programs": rows, "lanes_each": MC_OTHER_SEEDS, "max_abs_err": max(errs)}
 
 
 def phase_mc_sweep(jobs: dict) -> dict:
@@ -1566,11 +1645,14 @@ def phase_mc_sweep(jobs: dict) -> dict:
     numpy_s = [lanes[key].result()[1] for key in lanes]
     if failed:
         raise AssertionError(f"the Monte Carlo sweep failed: {failed}")
+    other = other_programs(jobs)
     res = {"phase": "mc_sweep", "main_path_launches": main, "workers": MC_WORKERS,
+           "plans": {n: sim_plan(s.program, MC_SEEDS) for n, s in sweeps.items()},
            "flap_report_equal_cpu": flap_equal, "numpy_lanes_checked": len(numpy_s),
-           "numpy_in_worker_ms_per_lane": float(np.mean(numpy_s)) * 1e3}
+           "numpy_in_worker_ms_per_lane": float(np.mean(numpy_s)) * 1e3,
+           "other_programs": other}
     return {"res": res, "rows": rows, "sweeps": sweeps, "reports": reports,
-            "timed_lanes": timed_lanes, "max_abs_err": max(errs)}
+            "timed_lanes": timed_lanes, "max_abs_err": max(errs + [other["max_abs_err"]])}
 
 
 def _timed_plain(p, draws, policy, n_lanes) -> tuple:
@@ -1610,7 +1692,7 @@ def finish_mc_sweep(state: dict) -> dict:
     for n, row in rows.items():
         emit({"phase": "mc_scenario", "scenario": n, **row})
     # the main path again, timed: the draws alone first (a sweep draws once
-    # per policy, so twice per scenario), then the five sweeps
+    # for both its policies), then the five sweeps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for s in sweeps.values():
@@ -1631,6 +1713,10 @@ def finish_mc_sweep(state: dict) -> dict:
         big.program, big_draws, policy="tent", fault_jitter=MC_JITTER, device=DEV))
     big_k = big_kern.cpu().numpy()
     del big_kern
+    big_card = [torch.from_numpy(big_draws[key]).to(DEV) for key in ("uf", "us", "ud", "jm")]
+    big_only_ms = cuda_ms(lambda: sim_kernel.spray_sim(
+        big.program, *big_card, round_robin=False, fault_jitter=MC_JITTER), iters=2, warmup=1)
+    del big_card
     big_out, big_plain_ms = _timed_plain(big.program, big_draws, "tent", MC_BIG)
     del big_draws
     heal = big_k[:, 1]
@@ -1639,7 +1725,10 @@ def finish_mc_sweep(state: dict) -> dict:
     b_bound, b_by = sim_bound(big.program, MC_BIG)
     big_row = {"scenario": MC_BIG_SCENARIO, "lanes": MC_BIG,
                "serial_steps_per_lane": big.program.rounds * big.program.wave,
+               "plan": sim_plan(big.program, MC_BIG),
                "draws_s": big_draws_s, "kernel_wall_ms": big_kern_ms,
+               "kernel_ms": big_only_ms,
+               "us_per_step": big_only_ms * 1e3 / (big.program.rounds * big.program.wave),
                "plain_on_card_wall_ms": big_plain_ms,
                "lanes_equal_plain_on_card": big_k.tobytes() == big_out.tobytes(),
                "max_abs_err": max_abs_diff([(big_k, big_out)]),
@@ -1656,6 +1745,7 @@ def finish_mc_sweep(state: dict) -> dict:
                                         fault_jitter=MC_JITTER)
     bound, bound_by = sim_bound(p, MC_SEEDS)
     timing = {"lanes": MC_SEEDS, "serial_steps_per_lane": p.rounds * p.wave,
+              "plan": sim_plan(p, MC_SEEDS),
               "kernel_ms": cuda_ms(kern, iters=3, warmup=1),
               **_device_fields(kern, "spray_sim", iters=2),
               "plain_ms": plain_ms, "numpy_ms_per_lane": numpy_ms,
@@ -1664,6 +1754,7 @@ def finish_mc_sweep(state: dict) -> dict:
               "max_abs_err": max([state["max_abs_err"], cell["max_abs_err"],
                                   big_row["max_abs_err"]]),
               "big": big_row}
+    timing = _per_step(timing, "serial_steps_per_lane")
     res = {**state["res"], "main_path_s": main_s, "main_path_draws_s": draws_s,
            "repeat_reports_equal": True, "timing": timing}
     emit(res)
@@ -1676,8 +1767,8 @@ def _summary(name, source, replaces, launches, timing) -> dict:
            "max_abs_err": timing["max_abs_err"], "ms": timing["kernel_ms"],
            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
-    for key in ("numpy_ms", "serial_steps", "serial_steps_per_lane", "kernel_device_ms",
-                "kernel_device_records"):
+    for key in ("numpy_ms", "serial_steps", "serial_steps_per_lane", "us_per_step", "plan",
+                "kernel_device_ms", "kernel_device_records"):
         if key in timing:
             out[key] = timing[key]
     return out

@@ -20,10 +20,13 @@ profiler's device time of each kernel, at the mamba2-370m and hymba-1.5b
 serving shapes. `engine` checks the jitted engine core's two kernels and
 the spray sim against their twins (the checks of `chip_smoke.py`'s
 jit_core phase and the flap's 64 lanes), the padded flash head dims and the
-SSD's reference shapes, and times the three engine kernels once.
+SSD's reference shapes, times the three engine kernels once, and times
+spray_sim at the flap's 64 lanes with a lane a block and with two lanes a
+warp, in turns.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -175,8 +178,26 @@ def engine() -> int:
     card = [torch.from_numpy(draws[k]).cuda() for k in ("uf", "us", "ud", "jm")]
     fn = lambda: cs.sim_kernel.spray_sim(p, *card, round_robin=False,  # noqa: E731
                                          fault_jitter=cs.MC_JITTER)
-    print("spray_sim ms", cs.cuda_ms(fn, iters=3, warmup=1), "device", cs.device_ms(fn, "spray_sim", 2),
-          "bound", cs.sim_bound(p, cs.MC_SEEDS), flush=True)
+    ms = cs.cuda_ms(fn, iters=3, warmup=1)
+    plan = cs.sim_kernel.plan_for(p, cs.MC_SEEDS, cs.sim_kernel._n_sms(card[0].device))
+    print("spray_sim ms", ms, "us_per_step", ms * 1e3 / (p.rounds * p.wave),
+          "device", cs.device_ms(fn, "spray_sim", 2), "bound", cs.sim_bound(p, cs.MC_SEEDS),
+          "plan", plan, flush=True)
+    # the launch plan's choice at 64 lanes, timed in turns: a lane a block
+    # (its warp to itself) against two lanes a warp, the same lanes
+    packed = dataclasses.replace(plan, groups_per_block=2, blocks=-(-cs.MC_SEEDS // 2))
+    plan_for = cs.sim_kernel.plan_for
+    alone = fn().clone()
+    turns = {}
+    for name in ("alone", "packed", "packed", "alone"):
+        cs.sim_kernel.plan_for = (lambda *a, **k: packed) if name == "packed" else plan_for
+        try:
+            equal = torch.equal(fn(), alone)
+            turns.setdefault(name, []).append(cs.cuda_ms(fn, iters=3, warmup=1))
+        finally:
+            cs.sim_kernel.plan_for = plan_for
+        bad += not equal
+    print("spray_sim lanes a warp", json.dumps(turns), flush=True)
     return 1 if bad else 0
 
 

@@ -56,6 +56,7 @@ __all__ = [
     "spray_single",
     "spray_sweep",
     "stack_draws",
+    "sweep_lanes",
     "JIT_MIN",
     "JIT_MIN_FLOOR",
     "JIT_MIN_CEIL",
@@ -476,12 +477,19 @@ def spray_sweep(p: SprayProgram, n_seeds: int, *, base_seed: int = 0,
     the lane-batched plain torch sim on the CPU. Returns per-seed float64
     arrays keyed `throughput`, `healing_s`, `bytes_ok`, `lost`,
     `makespan`."""
+    dev = default_device(device)
+    return sweep_lanes(p, stack_draws(p, n_seeds, base_seed=base_seed), policy=policy,
+                       fault_jitter=fault_jitter, device=dev)
+
+
+def sweep_lanes(p: SprayProgram, draws: Dict[str, np.ndarray], *, policy: str = "tent",
+                fault_jitter: float = 0.0, device=None) -> Dict[str, np.ndarray]:
+    """`spray_sweep` on draws the caller already holds (`stack_draws`), so
+    that several policies can share one draw of the seeds."""
     from ..kernels.spray_sim import ops as spray_ops
 
-    dev = default_device(device)
-    draws = stack_draws(p, n_seeds, base_seed=base_seed)
     out = spray_ops.spray_sim(p, draws, policy=policy, fault_jitter=fault_jitter,
-                              device=dev).cpu().numpy()
+                              device=default_device(device)).cpu().numpy()
     return {"throughput": out[:, 0], "healing_s": out[:, 1],
             "bytes_ok": out[:, 2], "lost": out[:, 3], "makespan": out[:, 4]}
 

@@ -18,8 +18,12 @@
 // step per slice (each slice's pick reads the queue the previous pick
 // charged), the drain one step per completion of a slot. The bytes (the
 // padded arrays, once) and the float operations are tiny; the time is the
-// serial steps times the latency of a block-wide reduction (chooser) or of
-// one fp64 update (drain), plus the launch. Both run as one launch per call.
+// serial steps times the latency of one step, plus the launch. Both run as
+// one launch per call. For at most 32 candidates (every wave of the scenario
+// library) the chooser is one warp with each candidate's inputs and charged
+// queue in its lane's registers: a slice costs a redux.sync minimum and two
+// ballots, with no block barrier and no shared memory. Wider waves take the
+// block kernel, whose slices pay for block-wide reductions.
 //
 // Layouts (all float64, as the wrapper packs them into one staging buffer;
 // integer and boolean values travel as exact doubles):
@@ -67,13 +71,101 @@ __device__ int block_sum(int n, int* cnt) {
   return s;
 }
 
+// Min of v over a full warp, exact for values that are not NaN: a double
+// maps to an unsigned 64-bit key of the same order (negative values have
+// their bits flipped, the others their sign bit set), and the warp takes the
+// least key's high word, then the least low word under it, by redux.sync.
+__device__ __forceinline__ double warp_min(double v) {
+  const unsigned long long u = (unsigned long long)__double_as_longlong(v);
+  const unsigned long long key = (long long)u < 0 ? ~u : u | 0x8000000000000000ull;
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mhi = __reduce_min_sync(0xffffffffu, hi);
+  const unsigned mlo = __reduce_min_sync(0xffffffffu, hi == mhi ? lo : 0xffffffffu);
+  const unsigned long long m = (unsigned long long)mhi << 32 | mlo;
+  return __longlong_as_double((long long)((long long)m < 0 ? m & 0x7fffffffffffffffull : ~m));
+}
+
 // score_d = pen * (b0 + b1 * (A + L) / bw), the reference's association order
 __device__ __forceinline__ double score(double pen, double b0, double b1, double a, double len,
                                         double bw) {
   return __dmul_rn(pen, __dadd_rn(b0, __ddiv_rn(__dmul_rn(b1, __dadd_rn(a, len)), bw)));
 }
 
-// One block walks the wave's slices in order. Thread i owns candidates
+// pc <= 32: one warp walks the wave's slices in order; candidate c lives on
+// lane c (its eight inputs and its charged queue in registers). Per slice:
+// the masked scores, their minimum by redux.sync (the all-excluded fallback the
+// same way), the gamma window by ballot, its k-th member by popcount rank;
+// that lane charges line 11 and writes the slice's outputs. Lengths and valid
+// flags are read 32 slices at a time, one a lane, and broadcast by shuffle.
+__global__ void __launch_bounds__(32)
+tent_choose_wave_warp(const double* __restrict__ in, double* __restrict__ out, int pc, int ps) {
+  const unsigned FULL = 0xffffffffu;
+  const double *len = in + 8 * pc, *valid = len + ps;
+  double *choice = out, *queued_at = out + ps, *q_out = out + 2 * ps;
+  const int c = threadIdx.x;
+  const bool live = c < pc;
+  double q = 0.0, gl = 0.0, gr = 0.0, bw = 1.0, b0 = 0.0, b1 = 1.0, pen = INFINITY;
+  bool ex = true;
+  if (live) {
+    q = in[c];
+    gl = in[pc + c];
+    gr = in[2 * pc + c];
+    bw = in[3 * pc + c];
+    b0 = in[4 * pc + c];
+    b1 = in[5 * pc + c];
+    pen = in[6 * pc + c];
+    ex = in[7 * pc + c] != 0.0;
+  }
+  const double one_plus_gamma = __dadd_rn(1.0, valid[ps + 1]);
+  long long rr = (long long)valid[ps];  // every lane keeps the same count
+  const bool rr32 = rr >= 0 && rr + ps < (1LL << 32);  // rr % n in 32 bits
+  const unsigned below = (1u << c) - 1u;  // the lanes before this one
+  for (int t0 = 0; t0 < ps; t0 += 32) {
+    const int tc = t0 + c;
+    const double len_c = tc < ps ? len[tc] : 0.0;
+    const unsigned valid_ball = __ballot_sync(FULL, tc < ps && valid[tc] != 0.0);
+    const int n = ps - t0 < 32 ? ps - t0 : 32;
+    for (int i = 0; i < n; ++i) {
+      const int t = t0 + i;
+      const double L = __shfl_sync(FULL, len_c, i);
+      // masked scores: (A + gl) + gr, then + L
+      const double a = __dadd_rn(__dadd_rn(q, gl), gr);
+      double v = !live || ex ? INFINITY : score(pen, b0, b1, a, L, bw);
+      double m = v;
+      m = warp_min(m);
+      if (isinf(m)) {
+        // soft exclusion must not deadlock: the raw local cost model, mask off
+        v = live ? score(pen, b0, b1, q, L, bw) : INFINITY;
+        m = v;
+        m = warp_min(m);
+      }
+      if (isfinite(m) && (valid_ball >> i) & 1u) {  // the same in every lane
+        const double thr = __dmul_rn(one_plus_gamma, m);
+        const bool in_w = live && v <= thr;
+        const unsigned ball = __ballot_sync(FULL, in_w);
+        const int n_win = __popc(ball);
+        const unsigned w = (unsigned)(n_win > 1 ? n_win : 1);
+        const long long k = rr32 ? (long long)((unsigned)rr % w) : rr % (long long)w;
+        if (in_w && __popc(ball & below) == k) {
+          q = __dadd_rn(q, L);  // line 11: A_d* += L
+          choice[t] = (double)c;
+          queued_at[t] = q;
+        } else if (c == 0 && !(k >= 0 && k < n_win)) {  // no member: an empty window
+          choice[t] = (double)pc;
+          queued_at[t] = 0.0;
+        }
+        ++rr;
+      } else if (c == 0) {
+        choice[t] = -1.0;
+        queued_at[t] = 0.0;
+      }
+    }
+  }
+  if (live) q_out[c] = q;
+  if (c == 0) q_out[pc] = (double)rr;
+}
+
+// pc > 32: one block walks the wave's slices in order. Thread i owns candidates
 // i, i + blockDim.x, ... (a stride loop past the block size); their scores and
 // the charged queue live in shared memory (s[pc], q[pc]).
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -222,12 +314,17 @@ tent_on_complete_many(double* __restrict__ st, int ps, const double* __restrict_
 
 extern "C" {
 
-// Shared memory the chooser needs for pc candidates (scores and queues).
+// Shared memory the block chooser needs for pc candidates (scores and queues).
 size_t tent_choose_wave_padded_smem(int pc) { return (size_t)pc * 2 * sizeof(double); }
 
 // `out` holds 2 * ps + pc + 1 doubles: choices, queued_at, q_out, rr_out.
+// One launch: the warp kernel for pc <= 32, else the block kernel.
 int tent_choose_wave_padded_launch(const double* in, double* out, int pc, int ps, void* stream) {
   if (pc <= 0 || ps < 0) return (int)cudaErrorInvalidValue;
+  if (pc <= 32) {
+    tent_choose_wave_warp<<<1, 32, 0, (cudaStream_t)stream>>>(in, out, pc, ps);
+    return (int)cudaGetLastError();
+  }
   int threads = ((pc + 31) / 32) * 32;
   if (threads > MAX_THREADS) threads = MAX_THREADS;
   const size_t smem = tent_choose_wave_padded_smem(pc);

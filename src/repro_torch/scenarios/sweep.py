@@ -35,7 +35,7 @@ import numpy as np
 
 from ..core.fabric import FAR_WINDOW, Fabric
 from ..device import default_device
-from ..core.jit_core import SprayProgram, spray_single, spray_sweep
+from ..core.jit_core import SprayProgram, spray_single, stack_draws, sweep_lanes
 from .runner import PolicyReport, ScenarioReport
 from .spec import ClosedLoopWorkload, ScenarioSpec, ServingWorkload
 
@@ -495,13 +495,14 @@ class MonteCarloSweep:
         self.program = compile_spray_program(spec, rounds=rounds)
 
     def run(self) -> SweepReport:
+        # the draws do not depend on the policy: one draw of the seeds
+        # serves every policy's sweep
+        draws = stack_draws(self.program, self.n_seeds, base_seed=self.base_seed)
         dists = {
             pol: _summarize(
                 pol,
-                spray_sweep(self.program, self.n_seeds,
-                            base_seed=self.base_seed, policy=pol,
-                            fault_jitter=self.fault_jitter,
-                            device=self.device),
+                sweep_lanes(self.program, draws, policy=pol,
+                            fault_jitter=self.fault_jitter, device=self.device),
                 self.base_seed)
             for pol in self.policies
         }

@@ -176,3 +176,31 @@ def test_no_card_means_no_sweep(monkeypatch, flap_program):
             call()
     got = spray_sim(flap_program, draws, device="cpu")
     assert got.device.type == "cpu" and tuple(got.shape) == (2, 5)
+
+
+def test_a_sweep_draws_once_for_all_its_policies(monkeypatch):
+    """`MonteCarloSweep.run` draws the seeds once and hands the same draws
+    to each policy: its report is byte-equal to one drawn per policy (the
+    `spray_sweep` entry point, which draws on each call)."""
+    import repro_torch.scenarios.sweep as port_sweep
+
+    sweep = MonteCarloSweep(get(FLAP), n_seeds=6, fault_jitter=0.25, rounds=24, device="cpu")
+    calls = []
+    real = port_sweep.stack_draws
+
+    def counted(*args, **kwargs):
+        calls.append(args[1])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_sweep, "stack_draws", counted)
+    rep = sweep.run()
+    assert calls == [6] and len(sweep.policies) == 2
+    per_policy = {pol: port_sweep._summarize(
+        pol, jit_core.spray_sweep(sweep.program, 6, base_seed=sweep.base_seed, policy=pol,
+                                  fault_jitter=0.25, device="cpu"), sweep.base_seed)
+        for pol in sweep.policies}
+    want = port_sweep.SweepReport(
+        scenario=FLAP, n_seeds=6, base_seed=sweep.base_seed, fault_jitter=0.25, rounds=24,
+        wave=sweep.program.wave, policies=per_policy,
+        violations=tuple(sweep._violations(per_policy)), spec=get(FLAP).to_dict())
+    assert rep.to_json(sort_keys=True) == want.to_json(sort_keys=True)
