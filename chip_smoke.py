@@ -43,20 +43,30 @@ Phases, one JSON line each on stdout:
            per scenario, and any violation fails the run.
   jit_core the engine's jitted core on the card (`EngineConfig.jit_core`):
            its main path, a zero-jitter transfer of 64 slices over 8 rails
-           with the crossover forced to 1, must launch both kernels
-           (`tent_choose_wave_padded`, `tent_on_complete_many`); both held
-           bit for bit against their torch twins on the card and the numpy
-           twins on randomized padded inputs at buckets 8-1024, at the
-           chooser's seam between its one-warp kernel (up to 32 candidates)
-           and its block kernel (1, 31, 32 and 33 candidates), an
-           all-excluded wave, padding rows and the scratch row; the 13
-           library scenarios in which a kernel engages, with jit_core on,
+           with the crossover forced to 1, must launch the chooser
+           (`tent_choose_wave_padded`) once and the drain
+           (`tent_on_complete_many`) 16 times; both held bit for bit
+           against their torch twins on the card and the numpy twins on
+           randomized padded inputs at buckets 8-1024, at the chooser's
+           seam between its one-warp kernel (up to 32 candidates) and its
+           block kernel (1, 31, 32 and 33 candidates), an all-excluded
+           wave and padding rows; the drain on its live entries through
+           the path's staged call (in place on the mapped staging buffer)
+           and the public `complete_many` on card buffers, also at the
+           main path's 64 x 8, at m = 1, with every completion on one
+           slot, at 2048 slots (eight blocks) and at 5000 live of a
+           bucket of 8192 (five shared tiles), the scratch row kept as
+           gathered; the staging A/B on a line of its own (`drain_ab`:
+           the path's call against a copy in, launch and copy back); the
+           13 library scenarios in which a kernel
+           engages, with jit_core on,
            equal their jit-off reports (the tests run all 25 on the CPU),
            also with the crossover forced to 1 on three; a recorded run
            turns the jitted core off with a warning and changes nothing;
            times of both kernels, their plain versions, the numpy twins
-           and the adapter's round trip at buckets 32, 256 and 1024, taken
-           before the sweep's worker processes start; the 13 scenarios'
+           and the adapter's round trip at buckets 32, 256 and 1024 (the
+           drain's kernel also at a fixed depth of 8 over those sizes),
+           taken before the sweep's worker processes start; the 13 scenarios'
            walls with jit_core off and on, taken after they end.
   mc_sweep the Monte Carlo sweep (`MonteCarloSweep`, the `spray_sim`
            kernel, a thread group a seed lane) over the five scenarios of
@@ -81,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import multiprocessing
 import re
@@ -1074,23 +1085,24 @@ def forced_crossover():
 @contextlib.contextmanager
 def kernel_shapes():
     """Record the (candidates, slices) and (slots, completions) buckets the
-    two engine kernels are launched at, through their bindings."""
+    two engine kernels are launched at, through the chooser's binding and
+    the drain's staged call."""
     seen = {"choose": {}, "drain": {}}
-    choose, drain = tc_kernel.choose_wave_padded, tc_kernel.complete_many
+    choose, drain = tc_kernel.choose_wave_padded, tc_ops.card_drain
 
     def rec_choose(inp, out, pc, ps):
         seen["choose"][(pc, ps)] = seen["choose"].get((pc, ps), 0) + 1
         return choose(inp, out, pc, ps)
 
-    def rec_drain(state, batch, ps, pm):
+    def rec_drain(staging, ps, pm, m):
         seen["drain"][(ps, pm)] = seen["drain"].get((ps, pm), 0) + 1
-        return drain(state, batch, ps, pm)
+        return drain(staging, ps, pm, m)
 
-    tc_kernel.choose_wave_padded, tc_kernel.complete_many = rec_choose, rec_drain
+    tc_kernel.choose_wave_padded, tc_ops.card_drain = rec_choose, rec_drain
     try:
         yield seen
     finally:
-        tc_kernel.choose_wave_padded, tc_kernel.complete_many = choose, drain
+        tc_kernel.choose_wave_padded, tc_ops.card_drain = choose, drain
 
 
 def engage_transfer() -> dict:
@@ -1198,11 +1210,19 @@ class _Policy:  # the drain only touches the store
 _DRAIN_STATE = ("beta0_arr", "beta1_arr", "queued_arr", "ewma_service_arr", "completions_arr")
 
 
+@functools.lru_cache(maxsize=None)
+def drain_staging() -> tc_ops.Staging:
+    return tc_ops.Staging(DEV)
+
+
 def check_drain(seed, n_links, batch) -> tuple:
-    """The drain kernel through the adapter (gather, scratch-row padding,
-    one launch, scatter) against the numpy store's drain, and through its
-    wrapper against its torch twin on the card on every padded row, bit for
-    bit. Returns (bit-equal, the largest difference from either)."""
+    """The drain kernel through the adapter (gather, the live entries
+    staged, one launch, scatter) against the numpy store's drain, and on
+    the padded batch, through the path's staged call and through the public
+    `complete_many` on card buffers, against its torch twin on the card on
+    the same m live entries, on every row, bit for bit; the scratch row and
+    the inert rows past it must keep their gathered values. Returns
+    (bit-equal, the largest difference from either, scratch rows kept)."""
     a, b, c = (_seeded_store(np.random.default_rng(seed), n_links) for _ in range(3))
     a.on_complete_many(*batch)
     EngineJitCore(_Policy(), b, device=DEV).on_complete_many(*batch)
@@ -1212,17 +1232,25 @@ def check_drain(seed, n_links, batch) -> tuple:
     pm = _bucket(m)
     state = c.gather_complete_state(ps)
 
-    def pad(v, fill):
-        out = np.full(pm, fill, dtype=np.float64)
+    def pad(v):  # the tail past m is never read
+        out = np.full(pm, np.nan)
         out[:m] = v
         return out
 
-    tb = (pad(batch[0], n_links), pad(batch[1], 0.0), pad(batch[2], 0.0), pad(batch[3], 0.0))
-    got = tc_ops.complete_many_np(state, *tb, tc_ops.Staging(DEV))
-    want = [w.cpu().numpy() for w in
-            tent_on_complete_many_torch(*(torch.from_numpy(a).to(DEV) for a in state + tb))]
-    ok = same and all(np.array_equal(g, w) for g, w in zip(got, want))
-    return ok, max_abs_diff(store_pairs + list(zip(got, want)))
+    tb = tuple(pad(v) for v in batch)
+    want = [w.cpu().numpy() for w in tent_on_complete_many_torch(
+        *(torch.from_numpy(a).to(DEV) for a in state), *(torch.from_numpy(v[:m]).to(DEV)
+                                                         for v in tb))]
+    staged = [g.copy() for g in tc_ops.complete_many_np(state, *tb, drain_staging(), m=m)]
+    card = torch.from_numpy(np.concatenate(state + tb)).to(DEV)
+    tc_kernel.complete_many(card[:8 * ps], card[8 * ps:], ps, pm, m)
+    rows = card[:5 * ps].cpu().numpy()
+    pairs, kept = list(store_pairs), True
+    for got in (staged, [rows[i * ps:(i + 1) * ps] for i in range(5)]):
+        pairs += list(zip(got, want))
+        same = same and all(np.array_equal(g, w) for g, w in zip(got, want))
+        kept = kept and all(np.array_equal(g[n_links:], s[n_links:]) for g, s in zip(got, state))
+    return same and kept, max_abs_diff(pairs), kept
 
 
 def _drain_batch(rng, n_links, m):
@@ -1252,15 +1280,25 @@ def jit_kernel_checks() -> dict:
                                      float(rng.choice([0.0, 0.05, 0.2])))
             for n_c in CHOOSE_SEAM for n_s in CHOOSE_SEAM_SLICES}
     drains = [(int(rng.integers(1, 7)), int(rng.integers(1, 40))) for _ in range(30)]
-    drains += [(16, 64), (100, 256), (1000, 1000), (6, 1024)]
+    # the main path's 64 x 8; m = 1; ps = 2048 (eight blocks); pm = 8192
+    # (five shared tiles)
+    drains += [(63, 8), (16, 64), (100, 256), (1000, 1000), (6, 1024), (5, 1), (1500, 3000),
+               (12, 5000)]
     drain = [check_drain(int(rng.integers(0, 1 << 30)), n_links, _drain_batch(rng, n_links, m))
              for n_links, m in drains]
-    # batch padding scatters into slot n; rows 0..n-1 see only the real batch
+    # every completion on one slot: one thread walks the whole batch
+    for n_links, m in ((9, 300), (3, 1024)):
+        slots, lengths, queued_at, t_obs = _drain_batch(rng, n_links, m)
+        drains.append((n_links, m))
+        drain.append(check_drain(int(rng.integers(0, 1 << 30)), n_links,
+                                 (np.full(m, n_links - 1), lengths, queued_at, t_obs)))
+    # the live count: rows 0..n-1 see only the real batch, the scratch row n
+    # keeps its gathered value
     scratch = check_drain(9, 3, tuple(np.asarray(v) for v in (
         [0, 2, 2], [4096, 1 << 20, 0], [100, 5000, 0], [0.25, 0.5, 0.75])))
     bad = [i for i, (ok, _) in enumerate(choose) if not ok]
     bad_excluded = [i for i, (ok, _) in enumerate(excluded) if not ok]
-    bad_drain = [i for i, (ok, _) in enumerate(drain) if not ok]
+    bad_drain = [i for i, (ok, _, _) in enumerate(drain) if not ok]
     bad_seam = [str(k) for k, (ok, _) in seam.items() if not ok]
     res = {"choose_cases": len(sizes), "choose_mismatches": bad,
            "seam_cases": len(seam), "seam_pc": sorted({_bucket(n_c) for n_c in CHOOSE_SEAM}),
@@ -1268,20 +1306,23 @@ def jit_kernel_checks() -> dict:
            "all_excluded_cases": len(excluded), "all_excluded_mismatches": bad_excluded,
            "padding_rows_never_selected": padding_never,
            "drain_cases": len(drains), "drain_mismatches": bad_drain,
-           "scratch_row_survives": scratch[0],
+           "drain_shapes": sorted({(_bucket(n + 1), _bucket(m)) for n, m in drains}),
+           "scratch_row_survives": scratch[0] and all(kept for _, _, kept in drain),
            "choose_max_abs_err": max(err for _, err in choose + excluded + [padding]
                                      + list(seam.values())),
-           "drain_max_abs_err": max(err for _, err in drain + [scratch]),
+           "drain_max_abs_err": max(err for _, err, _ in drain + [scratch]),
            "buckets": sorted({_bucket(n) for pair in sizes + drains for n in pair})}
-    if bad or bad_excluded or bad_drain or bad_seam or not (padding_never and scratch[0]):
+    if (bad or bad_excluded or bad_drain or bad_seam
+            or not (padding_never and res["scratch_row_survives"])):
         raise AssertionError(f"the engine kernels disagree with their twins: {res}")
     return res
 
 
-def _per_step(timing: dict, steps_key: str) -> dict:
-    """`timing` with `us_per_step`: the kernel's ms over its dependent serial
-    steps, in microseconds."""
-    return {**timing, "us_per_step": timing["kernel_ms"] * 1e3 / max(timing[steps_key], 1)}
+def _per_step(timing: dict, steps_key: str, ms_key: str = "kernel_ms") -> dict:
+    """`timing` with `us_per_step`: the kernel's ms (`ms_key`) over its
+    dependent serial steps, in microseconds (None where the ms is)."""
+    ms = timing[ms_key]
+    return {**timing, "us_per_step": None if ms is None else ms * 1e3 / max(timing[steps_key], 1)}
 
 
 def _host_ms(fn, iters):
@@ -1325,40 +1366,116 @@ def choose_timing(n_c, n_s) -> dict:
             "library_ms": None}, "serial_steps")
 
 
-def drain_timing(n_links, m) -> dict:
-    """The drain at one shape, as `choose_timing`. Bound: the packed state and
-    batch moved once and ~16 fp64 operations per completion; the dependent
-    steps are the most completions one slot takes."""
-    rng = np.random.default_rng(4)
-    batch = _drain_batch(rng, n_links, m)
+def _drain_inputs(n_links, m, slots=None):
+    """A seeded store's padded drain inputs for m completions (slots random,
+    or `slots`), the tail past m NaN: (batch, ps, pm, state + batch as one
+    float64 vector)."""
+    batch = _drain_batch(np.random.default_rng(4), n_links, m)
+    if slots is not None:
+        batch = (np.asarray(slots),) + batch[1:]
     store = _seeded_store(np.random.default_rng(5), n_links)
     ps, pm = _bucket(n_links + 1), _bucket(m)
-    st = store.gather_complete_state(ps)
-    bt = [np.full(pm, f, dtype=np.float64) for f in (n_links, 0.0, 0.0, 0.0)]
-    for col, v in zip(bt, batch):
-        col[:m] = v
-    state0 = torch.from_numpy(np.concatenate(st)).to(DEV)
-    state = state0.clone()
-    card_batch = torch.from_numpy(np.concatenate(bt)).to(DEV)
-    card_state = [torch.from_numpy(s).to(DEV) for s in st]
-    card_cols = [torch.from_numpy(c).to(DEV) for c in bt]
-    kern = lambda: tc_kernel.complete_many(state, card_batch, ps, pm)  # noqa: E731
+    cols = np.full((4, pm), np.nan)
+    cols[:, :m] = batch
+    return batch, ps, pm, np.concatenate(store.gather_complete_state(ps) + (cols.ravel(),))
+
+
+def drain_timing(n_links, m, slots=None) -> dict:
+    """The drain at one shape through the path's own call, one `StagedDrain`
+    call, which launches the kernel in place on the mapped staging buffer
+    and waits for it (`kernel_ms`: CUDA events over 20 calls;
+    `kernel_device_ms`: the profiler's); as a variant the path does not
+    take, the public `complete_many` on card buffers (`card_kernel_ms`: 20
+    calls back to back; `card_kernel_device_ms`); the plain torch version
+    on the card, the numpy twin on the host and the adapter's round trip.
+    Bound: the state and the live batch moved once and ~16 fp64 operations
+    per completion; the dependent steps are the most completions one slot
+    takes, and `us_per_step` is the path's device time over them."""
+    batch, ps, pm, inputs = _drain_inputs(n_links, m, slots)
+    card = torch.tensor(inputs, device=DEV)
+    state, card_batch = card[:8 * ps], card[8 * ps:]
+    card_state = [state[i * ps:(i + 1) * ps].clone() for i in range(8)]
+    card_cols = [card_batch[i * pm:i * pm + m].clone() for i in range(4)]
+    kern = lambda: tc_kernel.complete_many(state, card_batch, ps, pm, m)  # noqa: E731
+    staging = tc_ops.Staging(DEV)
+    n = 8 * ps + 4 * pm
+    staging.host(n)[1][:] = inputs
+    staged = staging.drain(n)
+    path = lambda: staged(ps, pm, m)  # noqa: E731
+    card_device_ms, card_records = device_ms(kern, "tent_on_complete_many")
     numpy_store = _seeded_store(np.random.default_rng(5), n_links)
     adapter = EngineJitCore(_Policy(), _seeded_store(np.random.default_rng(5), n_links),
                             device=DEV)
-    nbytes = 8 * (8 * ps + 4 * pm + 5 * ps)
+    nbytes = 8 * (8 * ps + 4 * m + 5 * ps)
     t_b, t_o = nbytes / HBM_BPS, 16.0 * m / PEAK_F64
     return _per_step({
             "slots": n_links, "completions": m, "ps": ps, "pm": pm,
-            "serial_steps": int(np.bincount(batch[0]).max()),
-            "kernel_ms": cuda_ms(kern),
-            **_device_fields(kern, "tent_on_complete_many"),
+            "serial_steps": int(np.bincount(batch[0].astype(np.int64)).max()),
+            "kernel_ms": cuda_ms(path),
+            **_device_fields(path, "tent_on_complete_many"),
+            "card_kernel_ms": cuda_ms(kern), "card_kernel_device_ms": card_device_ms,
+            "card_kernel_device_records": card_records,
             "plain_ms": cuda_ms(lambda: tent_on_complete_many_torch(*card_state, *card_cols),
                                 iters=3, warmup=1),
             "numpy_ms": _host_ms(lambda: numpy_store.on_complete_many(*batch), 5),
             "adapter_ms": _host_ms(lambda: adapter.on_complete_many(*batch), 20),
             "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": None}, "serial_steps")
+            "library_ms": None}, "serial_steps", "kernel_device_ms")
+
+
+def drain_fixed_depth(depth=8, sizes=JIT_BUCKETS) -> dict:
+    """The drain's kernel at one depth (every slot takes `depth`
+    completions, in a seeded order) over batches of `sizes`: its time should
+    not grow with the batch."""
+    out = {}
+    for m in sizes:
+        slots = np.random.default_rng(m).permutation(np.repeat(np.arange(m // depth), depth))
+        t = drain_timing(m // depth, m, slots)
+        out[str(m)] = {k: t[k] for k in ("slots", "serial_steps", "kernel_ms",
+                                         "kernel_device_ms", "kernel_device_records",
+                                         "us_per_step")}
+    return out
+
+
+def drain_ab(n_links, m, rounds=200) -> dict:
+    """The staging A/B at one shape, in turns (A B B A), host clock over
+    `rounds` calls, each waited for: the path's call (`StagedDrain`: the
+    kernel in place on the pinned buffer through its mapped pointer)
+    against a round trip through a card copy built here from public calls
+    (the buffer copied in, `complete_many` on the copy, the five updated
+    vectors copied back), beside the path's call with no live entry (m =
+    0). Both give the same rows. Emits its line."""
+    _, ps, pm, inputs = _drain_inputs(n_links, m)
+    n = 8 * ps + 4 * pm
+    staging = tc_ops.Staging(DEV)
+    call = staging.drain(n)
+    pinned = torch.empty(n, dtype=torch.float64, pin_memory=True)
+    card = torch.empty(n, dtype=torch.float64, device=DEV)
+
+    def copied():
+        card.copy_(pinned, non_blocking=True)
+        tc_kernel.complete_many(card[:8 * ps], card[8 * ps:], ps, pm, m)
+        pinned[:5 * ps].copy_(card[:5 * ps], non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+
+    calls = {"mapped": (lambda: call(ps, pm, m), staging.host(n)[1]),
+             "copied": (copied, pinned.numpy())}
+    rows, staged = {}, {}
+    for name in ("mapped", "copied", "copied", "mapped"):
+        fn, buf = calls[name]
+        buf[:] = inputs
+        fn()
+        rows.setdefault(name, buf[:5 * ps].copy())
+        staged.setdefault(name, []).append(_host_ms(fn, rounds))
+    empty = lambda: call(ps, pm, 0)  # noqa: E731
+    res = {"phase": "drain_ab", "slots": n_links, "completions": m, "ps": ps, "pm": pm,
+           "staged_ms": staged, "empty_ms": _host_ms(empty, rounds),
+           "empty_device_ms": device_ms(empty, "tent_on_complete_many")[0],
+           "rows_equal": np.array_equal(rows["mapped"], rows["copied"])}
+    emit(res)
+    if not res["rows_equal"]:
+        raise AssertionError(f"the drain's staging A/B gives two results: {res}")
+    return res
 
 
 def jit_core_main_path() -> dict:
@@ -1371,7 +1488,8 @@ def jit_core_main_path() -> dict:
         engage["wall_ms"] = (time.perf_counter() - t0) * 1e3
         main = read_launches()
     engage["shapes"] = {k: {str(s): n for s, n in v.items()} for k, v in shapes.items()}
-    if not (main["tent_choose_wave_padded"] > 0 and main["tent_on_complete_many"] > 0
+    # the reference's engagement case: one wave, 16 drains of 8
+    if not (main["tent_choose_wave_padded"] == 1 and main["tent_on_complete_many"] == 16
             and all(main[k] == 0 for k in main if not k.startswith("tent_"))):
         raise AssertionError(f"the jitted core's transfer launched {main}")
     # the kernels timed at the buckets the main path launched them at
@@ -1382,6 +1500,8 @@ def jit_core_main_path() -> dict:
         "tent_on_complete_many": drain_timing(drain[0] - 1, drain[1]),
         "adapter_crossover": {str(b): {"choose": choose_timing(8, b), "drain": drain_timing(16, b)}
                               for b in JIT_BUCKETS},
+        "drain_fixed_depth": drain_fixed_depth(),
+        "drain_ab": drain_ab(drain[0] - 1, drain[1]),
     }
     return {"main_path": engage, "main_path_launches": main, "timing": timing}
 
@@ -1768,7 +1888,8 @@ def _summary(name, source, replaces, launches, timing) -> dict:
            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
     for key in ("numpy_ms", "serial_steps", "serial_steps_per_lane", "us_per_step", "plan",
-                "kernel_device_ms", "kernel_device_records"):
+                "kernel_device_ms", "kernel_device_records", "card_kernel_ms",
+                "card_kernel_device_ms", "adapter_ms"):
         if key in timing:
             out[key] = timing[key]
     return out

@@ -6,6 +6,7 @@
     python3 kernel_probe.py check bfloat16
     python3 kernel_probe.py time             # SSD and flash times, the SSD split by kernel
     python3 kernel_probe.py engine           # the engine's fp64 kernels and the padded shapes
+    python3 kernel_probe.py drain            # the completion drain alone: checks, times, staging A/B
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -20,9 +21,13 @@ profiler's device time of each kernel, at the mamba2-370m and hymba-1.5b
 serving shapes. `engine` checks the jitted engine core's two kernels and
 the spray sim against their twins (the checks of `chip_smoke.py`'s
 jit_core phase and the flap's 64 lanes), the padded flash head dims and the
-SSD's reference shapes, times the three engine kernels once, and times
-spray_sim at the flap's 64 lanes with a lane a block and with two lanes a
-warp, in turns.
+SSD's reference shapes, times the three engine kernels once (the drain also
+at 16 slots x 32, 256 and 1024 completions and at a fixed depth of 8), runs
+the drain's staging A/B (`chip_smoke.py::drain_ab`: the path's call in place
+on the mapped staging buffer against a copy in, launch and copy back) and
+prices each piece of its call
+(`drain_call_costs`), and times spray_sim at the
+flap's 64 lanes with a lane a block and with two lanes a warp, in turns.
 """
 from __future__ import annotations
 
@@ -127,6 +132,82 @@ def time_kernels() -> int:
     return 0
 
 
+def drain_call_costs(n_links=63, m=8, iters=2000) -> dict:
+    """Host microseconds a call of each piece of the drain's call at one
+    shape (host clock over `iters` calls): the device and stream lookups, a
+    buffer check, the bare ctypes launch (unsynchronised), the public
+    wrapper (unsynchronised), the bare staged C entry (launch in place on
+    the mapped staging buffer and wait; with m = 0 the launch-and-wait
+    floor) and the `StagedDrain` call around it; and the profiler's device
+    time of the kernel on the mapped buffer."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+
+    _, ps, pm, inputs = cs._drain_inputs(n_links, m)
+    card = torch.tensor(inputs, device="cuda")
+    state, batch = card[:8 * ps], card[8 * ps:]
+    lib = cs.tc_kernel.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    staging = cs.tc_ops.Staging("cuda")
+    n = 8 * ps + 4 * pm
+    staging.host(n)[1][:] = inputs
+    call = staging.drain(n)
+    sp, bp = state.data_ptr(), batch.data_ptr()
+
+    def per_call(fn, sync=False):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if sync:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6 / iters
+
+    out = {
+        "current_device_us": per_call(torch.cuda.current_device),
+        "current_stream_us": per_call(lambda: torch.cuda.current_stream(0).cuda_stream),
+        "check_us": per_call(lambda: cs.tc_kernel._check(state, 8 * ps, "state")),
+        "bare_launch_us": per_call(lambda: lib.tent_on_complete_many_launch(
+            sp, ps, bp, pm, m, stream), sync=True),
+        "public_wrapper_us": per_call(lambda: cs.tc_kernel.complete_many(state, batch, ps, pm, m),
+                                      sync=True),
+        "bare_staged_m0_us": per_call(lambda: call._fn(call._dev, ps, pm, 0, call._stream)),
+        "bare_staged_us": per_call(lambda: call._fn(call._dev, ps, pm, m, call._stream)),
+        "staged_call_us": per_call(lambda: call(ps, pm, m)),
+        "mapped_kernel_device_ms": cs.device_ms(lambda: call(ps, pm, m),
+                                                "tent_on_complete_many")[0],
+    }
+    print("drain call costs", json.dumps(out), flush=True)
+    return out
+
+
+def drain() -> int:
+    """The drain alone: its checks, the engagement transfer, its timings,
+    its staging A/B and the price of each piece of its call."""
+    import chip_smoke as cs
+
+    print(cs.nvidia_smi(), flush=True)
+    cs.tc_kernel.load()
+    checks = cs.jit_kernel_checks()
+    print("OK  engine kernels", json.dumps({k: v for k, v in checks.items()
+                                            if "drain" in k or "scratch" in k}), flush=True)
+    with cs.forced_crossover():
+        cs.reset_launches()
+        print("engage", json.dumps(cs.engage_transfer()), json.dumps(cs.read_launches()),
+              flush=True)
+    print("timing", json.dumps({"drain": cs.drain_timing(63, 8),
+                                "drain_16": {str(m): cs.drain_timing(16, m)
+                                             for m in cs.JIT_BUCKETS},
+                                "drain_fixed_depth": cs.drain_fixed_depth()}), flush=True)
+    cs.drain_ab(63, 8)
+    drain_call_costs()
+    return 0
+
+
 def engine() -> int:
     import torch
 
@@ -174,7 +255,12 @@ def engine() -> int:
             {"kernel_wall_ms": k_ms, "plain_wall_ms": p_ms, "lanes_differ": diff[:10],
              "lane0_kernel": kern[0].tolist(), "lane0_numpy": lane0}), flush=True)
     print("timing", json.dumps({"choose": cs.choose_timing(8, 64),
-                                "drain": cs.drain_timing(63, 8)}), flush=True)
+                                "drain": cs.drain_timing(63, 8),
+                                "drain_16": {str(m): cs.drain_timing(16, m)
+                                             for m in cs.JIT_BUCKETS},
+                                "drain_fixed_depth": cs.drain_fixed_depth()}), flush=True)
+    cs.drain_ab(63, 8)
+    drain_call_costs()
     card = [torch.from_numpy(draws[k]).cuda() for k in ("uf", "us", "ud", "jm")]
     fn = lambda: cs.sim_kernel.spray_sim(p, *card, round_robin=False,  # noqa: E731
                                          fault_jitter=cs.MC_JITTER)
@@ -211,5 +297,7 @@ if __name__ == "__main__":
         sys.exit(time_kernels())
     if mode == "engine":
         sys.exit(engine())
+    if mode == "drain":
+        sys.exit(drain())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

@@ -165,9 +165,10 @@ class EngineJitCore:
     @hot_path
     def on_complete_many(self, slots, lengths, queued_at, t_obs) -> None:
         """Kernel twin of `TelemetryStore.on_complete_many`: full state
-        vectors travel through the telemetry transport hooks; batch padding
-        scatters into the store's scratch row (slot `n`), which the
-        write-back discards."""
+        vectors travel through the telemetry transport hooks; the batch is
+        padded to a shape bucket, and only its first `len(slots)` (live)
+        entries are drained, so the store's scratch row (slot `n`) keeps its
+        gathered value and the write-back discards it."""
         from ..kernels.tent_core import ops as tent_core_ops
 
         store = self.store
@@ -178,14 +179,10 @@ class EngineJitCore:
         state, (sl, ln, qa, to) = self.staging.drain_inputs(ps, pm)
         store.gather_complete_state(ps, out=state)
         sl[:m] = slots
-        sl[m:] = n
         ln[:m] = lengths
-        ln[m:] = 0.0
         qa[:m] = queued_at
-        qa[m:] = 0.0
         to[:m] = t_obs
-        to[m:] = 0.0
-        out = tent_core_ops.complete_many_staged(self.staging, ps, pm)
+        out = tent_core_ops.complete_many_staged(self.staging, ps, pm, m)
         store.scatter_complete_state(*out)
         self.drains += 1
 

@@ -24,6 +24,13 @@
 // queue in its lane's registers: a slice costs a redux.sync minimum and two
 // ballots, with no block barrier and no shared memory. Wider waves take the
 // block kernel, whose slices pay for block-wide reductions.
+// The drain costs its deepest slot's chain plus the launch, the staging of
+// the batch and the linking pass (a warp step per 32 entries of a warp's
+// segment, then a step per segment): each
+// slot's thread walks only its own completions, linked in batch order in
+// shared memory, with each entry's quotient x computed beforehand in
+// parallel, so a step's chain is the sample's division and the two EWMA
+// updates; the padded tail past the live count is never walked.
 //
 // Layouts (all float64, as the wrapper packs them into one staging buffer;
 // integer and boolean values travel as exact doubles):
@@ -32,17 +39,16 @@
 //   chooser out: choice[ps] queued_at[ps] q_out[pc] rr_out
 //   drain state: b0[ps] b1[ps] q[ps] ew[ps] comp[ps] alpha[ps] b0a[ps] bw[ps]
 //                (the first five updated in place)
-//   drain batch: slot[pm] len[pm] queued_at[pm] t_obs[pm]
+//   drain batch: slot[pm] len[pm] queued_at[pm] t_obs[pm], the first m live
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int MAX_THREADS = 1024;
 constexpr int DRAIN_THREADS = 256;
-constexpr int DRAIN_TILE = 2048;
+constexpr int DRAIN_TILE = 1024;
 
 // Python's min(a, b) and numpy's minimum for values that are not NaN
 __device__ __forceinline__ double dmin(double a, double b) { return b < a ? b : a; }
@@ -253,15 +259,72 @@ tent_choose_wave_padded(const double* __restrict__ in, double* __restrict__ out,
   if (tid == 0) q_out[pc] = (double)rr;
 }
 
-// One thread per slot d walks the whole batch in drain order and applies the
-// completions of slot d only: that is the sequential per-slot recurrence
-// (repeated slots included), and distinct slots run in parallel. The batch's
-// slot column is staged through shared memory a tile at a time.
+// ---------------------------------------------------------------- the drain
+// A block owns DRAIN_THREADS slots (several blocks above that) and drains
+// the live batch a shared tile at a time, the slots' state in registers from
+// tile to tile:
+//   1. stage: the tile's four columns into shared memory by plain coalesced
+//      loads (the first tile's asked for while the slots' state is in
+//      flight, so a launch on host memory through a mapped pointer waits for
+//      one round trip, not one per phase);
+//   2. off the chain: an entry a thread, x = (queued_at + len) / bw[slot],
+//      written over queued_at (the block's bandwidths in shared memory);
+//   3. link: each warp walks its own segment of the tile backwards 32
+//      entries at a time and threads each slot's entries into a list in
+//      batch order (__match_any_sync groups the lanes of one slot; a lane's
+//      successor is the next higher lane of its group, the highest takes the
+//      old head, the lowest becomes the new head), then each slot's thread
+//      joins its segments' lists in warp order: no atomics, deterministic;
+//   4. walk: slot d's thread runs the recurrence down its own list, the
+//      operands of the next entry read from shared memory before this
+//      entry's chain, the x > 0 branch a select.
+// Entries at or past the live count m are never read, so the padded tail
+// costs nothing and the scratch row keeps its gathered value.
+
+constexpr int DRAIN_WARPS = DRAIN_THREADS / 32;
+
+// Staging of the tile of n entries at j0, in two halves so that a
+// thread's loads are all in flight before the first store: its entries
+// (tid, tid + DRAIN_THREADS, ...) into registers, then into shared memory.
+constexpr int DRAIN_PER_THREAD = DRAIN_TILE / DRAIN_THREADS;
+__device__ __forceinline__ void load_tile(double (&v)[4][DRAIN_PER_THREAD], const double* batch,
+                                          int pm, int j0, int n) {
+#pragma unroll
+  for (int k = 0; k < DRAIN_PER_THREAD; ++k) {
+    const int i = (int)threadIdx.x + k * DRAIN_THREADS;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c][k] = i < n ? batch[(size_t)c * pm + j0 + i] : 0.0;
+  }
+}
+__device__ __forceinline__ void store_tile(double (*cols)[DRAIN_TILE],
+                                           const double (&v)[4][DRAIN_PER_THREAD], int n) {
+#pragma unroll
+  for (int k = 0; k < DRAIN_PER_THREAD; ++k) {
+    const int i = (int)threadIdx.x + k * DRAIN_THREADS;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (i < n) cols[c][i] = v[c][k];
+  }
+}
+// The entry's slot less the block's first, or -1 for another block's (or none)
+__device__ __forceinline__ int local_slot(double sv, int base, int nslots) {
+  return sv >= (double)base && sv < (double)(base + nslots) ? (int)sv - base : -1;
+}
+
 __global__ void __launch_bounds__(DRAIN_THREADS)
-tent_on_complete_many(double* __restrict__ st, int ps, const double* __restrict__ batch, int pm) {
-  __shared__ int tile[DRAIN_TILE];
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = d < ps;
+tent_on_complete_many(double* __restrict__ st, int ps, const double* __restrict__ batch, int pm,
+                      int m) {
+  __shared__ double cols[4][DRAIN_TILE];  // slot, len, queued_at then x, t_obs
+  __shared__ int nxt[DRAIN_TILE];  // the slot's next entry in batch order, or -1
+  __shared__ short seg_head[DRAIN_WARPS][DRAIN_THREADS];  // a segment's first entry of a slot
+  __shared__ short seg_tail[DRAIN_WARPS][DRAIN_THREADS];  // and its last
+  __shared__ double bws[DRAIN_THREADS];  // the block's slots' bandwidths
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int base = blockIdx.x * DRAIN_THREADS;
+  const int nslots = ps - base < DRAIN_THREADS ? ps - base : DRAIN_THREADS;
+  const int d = base + tid;
+  const bool live = tid < nslots;
+  // the state's loads and the first tile's go out together, before any is used
   double b0 = 0, b1 = 0, q = 0, ew = 0, comp = 0, alpha = 0, b0a = 0, bw = 1;
   if (live) {
     b0 = st[d];
@@ -273,33 +336,98 @@ tent_on_complete_many(double* __restrict__ st, int ps, const double* __restrict_
     b0a = st[6 * ps + d];
     bw = st[7 * ps + d];
   }
-  const double* lens = batch + pm;
-  const double* qas = batch + 2 * pm;
-  const double* tobs = batch + 3 * pm;
-  for (int j0 = 0; j0 < pm; j0 += DRAIN_TILE) {
-    const int n = pm - j0 < DRAIN_TILE ? pm - j0 : DRAIN_TILE;
+  const int n0 = m < DRAIN_TILE ? m : DRAIN_TILE;
+  double v[4][DRAIN_PER_THREAD];
+  load_tile(v, batch, pm, 0, n0);
+  if (live) bws[tid] = bw;
+  store_tile(cols, v, n0);
+  const double oma = __dsub_rn(1.0, alpha), omb = __dsub_rn(1.0, b0a);
+  for (int j0 = 0; j0 < m; j0 += DRAIN_TILE) {
+    const int n = m - j0 < DRAIN_TILE ? m - j0 : DRAIN_TILE;
+    // 1. stage the tile (the first is staged above)
+    if (j0 > 0) {
+      load_tile(v, batch, pm, j0, n);
+      store_tile(cols, v, n);
+    }
     __syncthreads();
-    for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = (int)batch[j0 + i];
+    // 2. the state-free work: x = (queued_at + len) / bw, the reference's order
+    for (int i = tid; i < n; i += DRAIN_THREADS) {
+      const int s = local_slot(cols[0][i], base, nslots);
+      if (s >= 0) cols[2][i] = __ddiv_rn(__dadd_rn(cols[2][i], cols[1][i]), bws[s]);
+    }
+    // 3. link: warp w's segment [w * seg, (w + 1) * seg), backwards
+    const int seg = ((n + DRAIN_THREADS - 1) / DRAIN_THREADS) * 32;  // 32-entry steps
+    const int nseg = (n + seg - 1) / seg;
+    if (warp < nseg) {
+      short* head = seg_head[warp];
+      short* tail = seg_tail[warp];
+      for (int t = lane; t < DRAIN_THREADS; t += 32) head[t] = -1;
+      __syncwarp();
+      const int lo = warp * seg, hi = lo + seg < n ? lo + seg : n;
+      for (int c0 = lo + ((hi - 1 - lo) & ~31); c0 >= lo; c0 -= 32) {
+        const int i = c0 + lane;
+        const int s = i < hi ? local_slot(cols[0][i], base, nslots) : -1;
+        const unsigned grp = __match_any_sync(0xffffffffu, s);
+        int nx = -1;
+        if (s >= 0) {
+          const unsigned above = grp & ~((2u << lane) - 1u);  // the group's higher lanes
+          nx = above ? c0 + __ffs(above) - 1 : head[s];
+          if (nx < 0) tail[s] = (short)i;  // the segment's last entry of s
+        }
+        __syncwarp();  // every old head read before the new ones are written
+        if (s >= 0) {
+          nxt[i] = nx;
+          if ((grp & ((1u << lane) - 1u)) == 0) head[s] = (short)i;  // the group's lowest lane
+        }
+        __syncwarp();
+      }
+    }
     __syncthreads();
-    if (!live) continue;
-    for (int i = 0; i < n; ++i) {
-      if (tile[i] != d) continue;
-      const double L = lens[j0 + i], tob = tobs[j0 + i];
-      const double x = __ddiv_rn(__dadd_rn(qas[j0 + i], L), bw);
-      if (x > 0.0) {
-        double sample = __ddiv_rn(__dsub_rn(tob, b0), x);
+    // 4. join the slot's segments in warp order, then walk its list
+    int i = -1;
+    if (live) {
+      int last = -1;
+      for (int w = 0; w < nseg; ++w) {
+        const int h = seg_head[w][tid];
+        if (h < 0) continue;
+        if (last >= 0) nxt[last] = h;
+        else i = h;
+        last = seg_tail[w][tid];
+      }
+    }
+    if (i >= 0) {
+      double x = cols[2][i], L = cols[1][i], tob = cols[3][i];
+      int nx = nxt[i];
+      for (;;) {
+        double x2 = 0.0, L2 = 0.0, t2 = 0.0;
+        int nx2 = -1;
+        if (nx >= 0) {  // the next entry's operands, off this entry's chain
+          x2 = cols[2][nx];
+          L2 = cols[1][nx];
+          t2 = cols[3][nx];
+          nx2 = nxt[nx];
+        }
+        const bool pos = x > 0.0;
+        double sample = __ddiv_rn(__dsub_rn(tob, b0), pos ? x : 1.0);
         sample = sample < 0.05 ? 0.05 : sample;  // min(max(sample, 0.05), 1e4)
         sample = 1e4 < sample ? 1e4 : sample;
-        b1 = __dadd_rn(__dmul_rn(__dsub_rn(1.0, alpha), b1), __dmul_rn(alpha, sample));
+        const double nb1 = __dadd_rn(__dmul_rn(oma, b1), __dmul_rn(alpha, sample));
+        b1 = pos ? nb1 : b1;
+        double resid = __dsub_rn(tob, __dmul_rn(b1, x));
+        resid = resid > 0.0 ? resid : 0.0;  // max(0.0, resid)
+        b0 = __dadd_rn(__dmul_rn(omb, b0), __dmul_rn(b0a, resid));
+        const double qd = __dsub_rn(q, L);
+        q = qd > 0.0 ? qd : 0.0;
+        ew = __dadd_rn(__dmul_rn(oma, ew), __dmul_rn(alpha, tob));
+        comp = __dadd_rn(comp, 1.0);
+        if (nx < 0) break;
+        x = x2;
+        L = L2;
+        tob = t2;
+        nx = nx2;
       }
-      double resid = __dsub_rn(tob, __dmul_rn(b1, x));
-      resid = resid > 0.0 ? resid : 0.0;  // max(0.0, resid)
-      b0 = __dadd_rn(__dmul_rn(__dsub_rn(1.0, b0a), b0), __dmul_rn(b0a, resid));
-      const double qd = __dsub_rn(q, L);
-      q = qd > 0.0 ? qd : 0.0;
-      ew = __dadd_rn(__dmul_rn(__dsub_rn(1.0, alpha), ew), __dmul_rn(alpha, tob));
-      comp = __dadd_rn(comp, 1.0);
     }
+    __syncthreads();  // the next tile is staged over this one
   }
   if (live) {
     st[d] = b0;
@@ -337,11 +465,29 @@ int tent_choose_wave_padded_launch(const double* in, double* out, int pc, int ps
   return (int)cudaGetLastError();
 }
 
-int tent_on_complete_many_launch(double* state, int ps, const double* batch, int pm, void* stream) {
-  if (ps <= 0 || pm < 0) return (int)cudaErrorInvalidValue;
+// The first m entries of the batch drain.
+int tent_on_complete_many_launch(double* state, int ps, const double* batch, int pm, int m,
+                                 void* stream) {
+  if (ps <= 0 || pm < 0 || m < 0 || m > pm) return (int)cudaErrorInvalidValue;
   const int blocks = (ps + DRAIN_THREADS - 1) / DRAIN_THREADS;
-  tent_on_complete_many<<<blocks, DRAIN_THREADS, 0, (cudaStream_t)stream>>>(state, ps, batch, pm);
+  tent_on_complete_many<<<blocks, DRAIN_THREADS, 0, (cudaStream_t)stream>>>(state, ps, batch, pm,
+                                                                           m);
   return (int)cudaGetLastError();
+}
+
+// The device pointer of a pinned host buffer, through which a kernel reads
+// and writes it in place.
+int tent_mapped_pointer(void* host, void** dev) {
+  return (int)cudaHostGetDevicePointer(dev, host, 0);
+}
+
+// One staged drain, waited for: `dev` is the mapped device pointer of the
+// pinned staging buffer (the eight state vectors over ps slots, then the four
+// batch columns over pm), which the kernel reads and writes in place.
+int tent_on_complete_many_staged(double* dev, int ps, int pm, int m, void* stream) {
+  const int launched = tent_on_complete_many_launch(dev, ps, dev + 8 * (size_t)ps, pm, m, stream);
+  if (launched != 0) return launched;
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -58,6 +58,12 @@ template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) 
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// host and card share one memory: a mapped pointer is the host pointer itself
+inline cudaError_t cudaStreamSynchronize(cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaHostGetDevicePointer(void** dev, void* host, unsigned) {
+  *dev = host;
+  return cudaSuccess;
+}
 inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
 inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
 inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
@@ -125,6 +131,18 @@ inline unsigned __ballot_sync(unsigned mask, int p) {
     if ((mask >> i) & 1 && emu::warp().pred[i]) b |= 1u << i;
   emu::sync(mask);
   return b;
+}
+// the lanes of `mask` whose value equals this lane's
+template <class T> unsigned __match_any_sync(unsigned mask, T v) {
+  uint64_t u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  emu::warp().slot[emu::lane()] = u;
+  emu::sync(mask);
+  unsigned g = 0;
+  for (int i = 0; i < 32; ++i)
+    if ((mask >> i) & 1 && emu::warp().slot[i] == u) g |= 1u << i;
+  emu::sync(mask);
+  return g;
 }
 inline unsigned __reduce_min_sync(unsigned mask, unsigned v) {
   emu::warp().slot[emu::lane()] = v;
@@ -323,6 +341,85 @@ print(json.dumps({"cases": cases, "bad": bad}))
 """
 
 
+DRAIN_CHECK = r"""
+import ctypes, json, sys
+import numpy as np
+import repro.core as ref_core
+import repro_torch.core as port_core
+from repro_torch.core.jit_core import _bucket
+
+STATE = ("beta0_arr", "beta1_arr", "queued_arr", "ewma_service_arr", "completions_arr")
+job = json.loads(sys.argv[1])
+lib = ctypes.CDLL(job["lib"])
+lib.tent_on_complete_many_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+lib.tent_on_complete_many_staged.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
+
+
+def store(module, seed, n_links):
+    rng = np.random.default_rng(seed)
+    st = module.TelemetryStore()
+    for i in range(n_links):
+        tl = st.ensure(module.LinkDesc(link_id=i, node=0, link_class=module.LinkClass.RDMA,
+                                       index=i, numa=0, bandwidth=float(rng.choice([25e9, 1e9])),
+                                       base_latency=5e-6))
+        tl.queued_bytes = int(rng.integers(0, 1 << 30))
+        tl.beta0 = float(rng.uniform(0.0, 1e-2))
+        tl.beta1 = float(rng.uniform(0.05, 50.0))
+        tl.ewma_service_time = float(rng.uniform(0.0, 1.0))
+    return st
+
+
+rng = np.random.default_rng(11)
+bad, cases = [], []
+for label, n_links, m, pm, one_slot in job["cases"]:
+    seed = int(rng.integers(0, 1 << 30))
+    slots = (np.full(m, one_slot) if one_slot is not None else rng.integers(0, n_links, size=m))
+    lengths = rng.integers(0, 1 << 22, size=m)
+    queued_at = rng.integers(0, 1 << 24, size=m)
+    zero = rng.random(m) < 0.1  # x = 0: beta1 keeps its value
+    lengths[zero], queued_at[zero] = 0, 0
+    t_obs = rng.uniform(0.0, 5.0, size=m)
+    a, b = store(ref_core, seed, n_links), store(port_core, seed, n_links)
+    a.on_complete_many(slots, lengths, queued_at, t_obs)
+    b.on_complete_many(slots, lengths, queued_at, t_obs)
+    ps = _bucket(n_links + 1)
+    state = np.concatenate(store(port_core, seed, n_links).gather_complete_state(ps))
+    gathered = state.copy()
+    # the columns hold garbage past m: the kernel must not read them
+    cols = np.full((4, pm), np.nan)
+    cols[:, :m] = slots, lengths, queued_at, t_obs
+    buf = np.concatenate([state, cols.ravel()])
+    if job["entry"] == "launch":
+        err = lib.tent_on_complete_many_launch(buf.ctypes.data, ps, buf[8 * ps:].ctypes.data, pm,
+                                               m, None)
+    else:  # the staging buffer read and written in place
+        err = lib.tent_on_complete_many_staged(buf.ctypes.data, ps, pm, m, None)
+    assert err == 0, err
+    out = buf[:5 * ps].reshape(5, ps)
+    same = all(np.array_equal(out[k, :n_links], getattr(a, name)[:n_links].astype(np.float64))
+               and np.array_equal(out[k, :n_links], getattr(b, name)[:n_links].astype(np.float64))
+               for k, name in enumerate(STATE))
+    scratch = np.array_equal(out[:, n_links:], gathered[:5 * ps].reshape(5, ps)[:, n_links:])
+    cases.append([label, ps, pm, m])
+    if not (same and scratch):
+        bad.append([label, same, scratch])
+print(json.dumps({"cases": cases, "bad": bad}))
+"""
+
+# (label, links, m live, pm, the one slot every entry names or None)
+DRAIN_CASES = [
+    ("repeated slots", 5, 37, 64, None),
+    ("one slot takes the batch", 4, 50, 64, 2),
+    ("padded tail", 3, 9, 16, None),
+    ("ps above one block", 300, 700, 1024, None),
+    ("batch above one tile", 6, 2500, 4096, None),
+    ("m = 1", 7, 1, 8, None),
+    ("m = pm", 7, 64, 64, None),
+    ("odd m", 2, 33, 64, None),
+]
+
 def _run(code: str, job: dict) -> dict:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
     proc = subprocess.run([sys.executable, "-c", code, json.dumps(job)], capture_output=True,
@@ -374,3 +471,13 @@ def test_wave_chooser_equals_the_numpy_chooser(emulated, rr_base):
                               "candidates": [1, 2, 8, 31, 32, 33, 40],
                               "slices": [1, 31, 33, 64]})
     assert res["cases"] == 56 and not res["bad"], res["bad"][:5]
+
+
+@pytest.mark.parametrize("entry", ["launch", "staged"])
+def test_drain_equals_the_numpy_store(emulated, entry):
+    """The drain kernel's rows 0..n-1 bit-equal to the reference's and the
+    port's numpy stores, and the scratch row n and the inert rows past it
+    as gathered, on the live entries only (the tail past m is NaN)."""
+    res = _run(DRAIN_CHECK, {"lib": emulated["tent_core"], "entry": entry, "cases": DRAIN_CASES})
+    assert len(res["cases"]) == len(DRAIN_CASES) and not res["bad"], res["bad"]
+    assert {(ps, pm) for _, ps, pm, _ in res["cases"]} >= {(512, 1024), (8, 4096)}

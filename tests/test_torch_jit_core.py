@@ -233,12 +233,20 @@ def _emulated_choose(inp, out, pc, ps):
     tc_kernel.choose_launches += 1
 
 
-def _emulated_drain(state, batch, ps, pm):
-    outs = tent_on_complete_many_torch(*(state[i * ps:(i + 1) * ps] for i in range(8)),
-                                       *(batch[i * pm:(i + 1) * pm] for i in range(4)))
-    for i, vec in enumerate(outs):
-        state[i * ps:(i + 1) * ps] = vec
-    tc_kernel.drain_launches += 1
+class _EmulatedDrain:
+    """csrc/tent_core.cu's staged drain, in its layouts, by the torch twin on
+    the first m (live) entries, in place in the staging buffer."""
+
+    def __init__(self, host, device):
+        self.host = host
+
+    def __call__(self, ps, pm, m):
+        state, batch = self.host[:8 * ps], self.host[8 * ps:8 * ps + 4 * pm]
+        outs = tent_on_complete_many_torch(*(state[i * ps:(i + 1) * ps] for i in range(8)),
+                                           *(batch[i * pm:i * pm + m] for i in range(4)))
+        for i, vec in enumerate(outs):
+            state[i * ps:(i + 1) * ps] = vec
+        tc_kernel.drain_launches += 1
 
 
 @pytest.fixture
@@ -246,7 +254,7 @@ def emulated_card(monkeypatch):
     """The card path of the adapter on the CPU: a CPU staging's buffers are
     plain CPU tensors, and the kernels are their emulations."""
     monkeypatch.setattr(tc_kernel, "choose_wave_padded", _emulated_choose)
-    monkeypatch.setattr(tc_kernel, "complete_many", _emulated_drain)
+    monkeypatch.setattr(tc_kernel, "StagedDrain", _EmulatedDrain)
     monkeypatch.setattr(tc_kernel, "choose_launches", 0)
     monkeypatch.setattr(tc_kernel, "drain_launches", 0)
     monkeypatch.setattr(tc_ops, "choose_wave_staged", tc_ops.card_choose)
@@ -271,6 +279,36 @@ def test_staged_card_path_packs_what_the_kernels_read(emulated_card):
     for name in _STATE:
         assert np.array_equal(getattr(a, name)[:4], getattr(b, name)[:4])
     assert tc_kernel.choose_launches == 10 and tc_kernel.drain_launches == 1
+
+
+@pytest.mark.parametrize("path", ["cpu", "card"])
+def test_live_count_leaves_the_scratch_row_as_gathered(path, request):
+    """The live-count contract, the same on both devices: a drain reads the
+    first m entries of its padded batch and nothing past them (the tail is
+    NaN here), rows 0..n-1 equal the reference store's drain, and the
+    scratch row n and the inert rows past it keep their gathered values."""
+    if path == "card":
+        request.getfixturevalue("emulated_card")
+    n_links, m = 5, 11
+    rng = np.random.default_rng(23)
+    batch = (rng.integers(0, n_links, size=m), rng.integers(0, 1 << 22, size=m),
+             rng.integers(0, 1 << 24, size=m), rng.uniform(0.0, 5.0, size=m))
+    a = _seeded_store(ref_core, np.random.default_rng(4), n_links)
+    a.on_complete_many(*batch)
+    store = _seeded_store(port_core, np.random.default_rng(4), n_links)
+    ps, pm = _bucket(n_links + 1), _bucket(m)
+    staging = tc_ops.Staging(CPU)
+    state, cols = staging.drain_inputs(ps, pm)
+    gathered = np.stack(store.gather_complete_state(ps, out=state))
+    for col, v in zip(cols, batch):
+        col[:m] = v
+        col[m:] = np.nan
+    out = np.stack(tc_ops.complete_many_staged(staging, ps, pm, m))
+    for k, name in enumerate(_STATE):
+        assert np.array_equal(out[k, :n_links], getattr(a, name)[:n_links].astype(np.float64))
+    assert np.array_equal(out[:, n_links:], gathered[:5, n_links:])
+    if path == "card":
+        assert tc_kernel.drain_launches == 1
 
 
 def _with_jit(spec):
