@@ -12,9 +12,11 @@ Phases, one JSON line each on stdout:
            instructions of each kernel in the built libraries' SASS.
   kernels  every kernel of the paths (flash attention, SSD scan, KV-page
            pack and unpack) against its plain torch version on the card, at
-           the serving shapes and the reference's edge shapes, with times
-           and bounds at the serving shapes. The KV-page kernels are held
-           bit for bit, and their index checks must raise.
+           the serving shapes (flash also at qwen3-moe's 64/4 heads of 128
+           and seamless-m4t's decoder, 16/16 heads of 64) and the
+           reference's edge shapes, with times and bounds at the serving
+           shapes. The KV-page kernels are held bit for bit, and their
+           index checks must raise.
   kv_path  the KV-page kernels' own entry points (`kv_pack`, `kv_unpack`),
            which no other path of the system runs: qwen2-0.5b's per-layer
            K|V pages gathered from one pool on the card into a transfer
@@ -27,13 +29,27 @@ Phases, one JSON line each on stdout:
              qwen2-0.5b   B=4, 1024-token prompts (flash attention)
              mamba2-370m  B=4, 1024-token prompts (SSD scan)
              hymba-1.5b   B=2, 3072-token prompts, window 2048 (both)
-  serve_bf16  qwen2-0.5b and mamba2-370m the same way in bfloat16, the
-           reference's default parameter type (flash attention and the SSD
-           scan on the tensor cores), each prefill held against an f32
-           evaluation of the same bf16 weights no further than 1.5x the
-           plain bf16 prefill is.
+             qwen3-moe-235b-a22b  B=4, 1024-token prompts, depth 94 cut to
+                          2 (flash; 128 experts, top 8, sorted dispatch);
+                          a route pick that differs between the kernel and
+                          the plain prefill is reported with its
+                          probability gap, and the batch rows it reaches
+                          are left out of the 2e-3 check
+             seamless-m4t-medium  B=4, 1024-token prompts, 256 encoder
+                          frames from the seed (flash in the decoder's 12
+                          layers; the encoder's 12 run plain)
+  serve_bf16  qwen2-0.5b, mamba2-370m and qwen3-moe-235b-a22b (depth 4)
+           the same way in bfloat16, the reference's default parameter type
+           (flash attention and the SSD scan on the tensor cores), each
+           prefill held against an f32 evaluation of the same bf16 weights
+           (layer by layer) no further than 1.5x the plain bf16 prefill is.
   profile  device time by op (torch.profiler) over one prefill and eight
            decode steps of each serve phase, and the device's busy share.
+  moe_layer  qwen3-moe-235b-a22b's MoE FFN (`moe_ffn_sorted`) alone at full
+           width, at the prefill's T = 4096 and decode's T = 4, f32 and
+           bf16: CUDA-event and device times of the layer, of routing, of
+           the expert products and of the combine (the dispatch is the
+           rest), device time by kernel, beside its bounds.
   hicache  three-tier HiCache (GPU/CPU/disk pools of real bytes) for the
            full-width qwen2-0.5b on the disagg_prefill_decode engine: two
            4096-token conversations, the second demoting the first, which
@@ -137,6 +153,8 @@ from repro_torch.kernels.spray_sim import spray_sim, spray_sim_ref  # noqa: E402
 from repro_torch.kernels.tent_core import kernel as tc_kernel  # noqa: E402
 from repro_torch.kernels.tent_core import ops as tc_ops  # noqa: E402
 from repro_torch.models import init_params, prefill_forward  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.common import dense_init  # noqa: E402
 from repro_torch.obs import FlightRecorder  # noqa: E402
 from repro_torch.obs import events as OBS  # noqa: E402
 from repro_torch.obs.explain import replay_wave  # noqa: E402
@@ -163,6 +181,8 @@ HBM_BPS = 3.35e12
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}  # tests/test_kernels.py:14-15
 SERVE_SHAPE = (4, 1024, 14, 2, 64)  # (B, S, H, K, D): qwen2-0.5b prefill below
+QWEN3_MOE_FLASH_SHAPE = (4, 1024, 64, 4, 128)  # qwen3-moe-235b-a22b prefill below
+SEAMLESS_FLASH_SHAPE = (4, 1024, 16, 16, 64)  # seamless-m4t-medium decoder prefill below
 HYMBA_FLASH_SHAPE, HYMBA_WINDOW = (2, 3072, 25, 5, 64), 2048  # hymba-1.5b prefill
 # the reference's edge shapes, and S = 200 with D = 128 (not a multiple of
 # the 64-key tile, the wide head's two column halves)
@@ -194,11 +214,22 @@ KV_CHECK_SHAPES = [(32, 16, 128, 8), (64, 8, 256, 64), (40, 16, 3, 7), (40, 5, 3
 KV_QWEN2 = (131072, 16, 256, 8192)
 KV_HYMBA = (32768, 16, 640, 4096)
 
-# (arch, batch, prompt, new tokens, parameter type); replay checks on
-# 256-token prompts
-SERVES = [("qwen2-0.5b", 4, 1024, 32, torch.float32), ("mamba2-370m", 4, 1024, 32, torch.float32),
-          ("hymba-1.5b", 2, 3072, 32, torch.float32), ("qwen2-0.5b", 4, 1024, 32, torch.bfloat16),
-          ("mamba2-370m", 4, 1024, 32, torch.bfloat16)]
+# (arch, batch, prompt, new tokens, parameter type, depth: None for the
+# published one); replay checks on 256-token prompts. qwen3-moe's 94 layers
+# hold 2.49e9 parameters each (9.95 GB in f32), so its depth is cut to what
+# one 80 GB card holds beside the checks; its width is not.
+SERVES = [("qwen2-0.5b", 4, 1024, 32, torch.float32, None),
+          ("mamba2-370m", 4, 1024, 32, torch.float32, None),
+          ("hymba-1.5b", 2, 3072, 32, torch.float32, None),
+          ("qwen2-0.5b", 4, 1024, 32, torch.bfloat16, None),
+          ("mamba2-370m", 4, 1024, 32, torch.bfloat16, None),
+          ("qwen3-moe-235b-a22b", 4, 1024, 32, torch.float32, 2),
+          ("qwen3-moe-235b-a22b", 4, 1024, 32, torch.bfloat16, 4),
+          ("seamless-m4t-medium", 4, 1024, 32, torch.float32, None)]
+# enc-dec: encoder frames = prompt // 4, as the reference's dry run sizes
+# them (src/repro/launch/dryrun.py:151)
+ENC_FRAMES_DIV = 4
+MOE_ARCH, MOE_TOKENS = "qwen3-moe-235b-a22b", (4096, 4)  # moe_layer: prefill and decode T
 # a bf16 kernel prefill's logits may lie at most this many times as far from
 # an f32 evaluation of the same bf16 weights as the plain bf16 prefill's do
 BF16_GATE = 1.5
@@ -679,6 +710,11 @@ def phase_kernels() -> dict:
         fa_cases.append(case)
         timing["flash_attention"][f"{dt}_hymba"] = _flash_timing(
             HYMBA_FLASH_SHAPE, dtype, case, HYMBA_WINDOW)
+        for key, shape in (("qwen3_moe", QWEN3_MOE_FLASH_SHAPE),
+                           ("seamless", SEAMLESS_FLASH_SHAPE)):
+            case, _ = _check_case(shape, dtype, 0, seed=1)
+            fa_cases.append(case)
+            timing["flash_attention"][f"{dt}_{key}"] = _flash_timing(shape, dtype, case)
         for shape in (SSD_SERVE_SHAPE, SSD_HYMBA_SHAPE):
             case, inputs = _check_ssd(shape, dtype, seed=4)
             ssd_cases.append(case)
@@ -804,29 +840,124 @@ def expected_launches(cfg) -> dict:
             "ssd_scan": cfg.num_layers if has_ssm else 0}
 
 
+class _F32Stack:
+    """A stacked layer leaf that hands out one layer at a time in float32.
+    The model reads layer i of a stacked leaf as leaf[i]
+    (`repro_torch.models.model._layer`), so an f32 evaluation of bf16
+    weights holds one layer's f32 copy at a time (qwen3-moe's bf16 layers
+    would take 9.66 GB each in f32)."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def __getitem__(self, i):
+        return self.t[i].float()
+
+
 def _as_f32(params):
-    return {n: _as_f32(t) if isinstance(t, dict) else t.float() for n, t in params.items()}
+    return {n: {k: _F32Stack(v) for k, v in t.items()} if n == "layers"
+            else _as_f32(t) if isinstance(t, dict) else t.float() for n, t in params.items()}
 
 
-def prefill_distances(cfg, params, prompts, logits) -> tuple:
+def prefill_distances(cfg, params, prompts, logits, enc=None) -> tuple:
     """How far a prefill's last-token logits lie from an f32 evaluation of
     the same weights through the plain path (the yardstick), beside how far
     the plain prefill in the weights' own type lies from it: (kernel,
     plain), each a max-abs distance. For bf16 weights the second says how
-    much the type alone moves the logits."""
+    much the type alone moves the logits. `enc`: the enc-dec frames, if any."""
+    enc = enc or {}
     plain_cfg = cfg.with_(use_pallas=False)
-    want = prefill_forward(plain_cfg, _as_f32(params), prompts)[0]
-    plain = prefill_forward(plain_cfg, params, prompts)[0]
+    want = prefill_forward(plain_cfg, _as_f32(params), prompts,
+                           **{n: t.float() for n, t in enc.items()})[0]
+    plain = prefill_forward(plain_cfg, params, prompts, **enc)[0]
     return ((logits.float() - want).abs().max().item(),
             (plain.float() - want).abs().max().item())
 
 
-def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.float32):
+class RouteRecorder:
+    """Inside a `with` block, records every call of the MoE layers' `route`
+    (the router's input, its probabilities and its picks) by wrapping
+    `repro_torch.models.moe.route`, which `moe_ffn_sorted` looks up at each
+    call; the package is as it was after the block."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._route = moe_mod.route
+
+        def recorded(x, router_w, k):
+            out = self._route(x, router_w, k)
+            probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            self.calls.append({"x": x.detach().clone(), "probs": probs, "idx": out[1].clone()})
+            return out
+
+        moe_mod.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._route
+
+
+def _kept(idx, C, E):
+    """Which (token, pick) pairs of `idx` (T, k) `moe_ffn_sorted` keeps at
+    capacity C, in idx's layout."""
+    order, _, keep = moe_mod.bucket_slots(idx, E, C)
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    return kept.reshape(idx.shape)
+
+
+def route_flips(cfg, kernel_calls, plain_calls, seq):
+    """The (layer, token) pairs whose route picks, or whose kept pairs,
+    differ between the kernel and the plain prefill, layer by layer.
+    Returns (flips, rows): for each, its probability gap between the k-th
+    and (k+1)-th expert on the kernel path and how far the router's input
+    for the token lies apart between the paths; `rows`, the batch rows a
+    difference reaches. A difference in a row no earlier layer reached is
+    `first`: its input agreed up to the paths' rounding, unless the row's
+    router input lies outside 2e-3."""
+    k, E = cfg.experts_per_token, cfg.num_experts
+    flips, rows = [], set()
+    for layer, (kc, pc) in enumerate(zip(kernel_calls, plain_calls)):
+        ki, pi = kc["idx"], pc["idx"]
+        C = moe_mod.capacity(cfg, ki.shape[0])
+        kk, pk = _kept(ki, C, E), _kept(pi, C, E)
+        picks = (ki.sort(1).values != pi.sort(1).values).any(1)
+        kept = (torch.where(kk, ki, E).sort(1).values
+                != torch.where(pk, pi, E).sort(1).values).any(1)
+        reached = set()
+        for t in torch.nonzero(picks | kept).flatten().tolist():
+            top = kc["probs"][t].sort(descending=True).values
+            xk, xp = kc["x"][t].float(), pc["x"][t].float()
+            err = (xk - xp).abs()
+            flips.append({"layer": layer, "token": t, "row": t // seq,
+                          "picks_differ": bool(picks[t]), "first": t // seq not in rows,
+                          "prob_gap": (top[k - 1] - top[k]).item(),
+                          "router_input_max_abs_err": err.max().item(),
+                          "router_input_within_2e-3": bool((err <= 2e-3 + 2e-3 * xp.abs()).all())})
+            reached.add(t // seq)
+        rows |= reached
+    return flips, rows
+
+
+def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.float32,
+                depth=None):
+    """`depth`: the decoder layers kept of the published config (None: all);
+    the width is the published one."""
     cfg = get_config(arch).with_(use_pallas=True, remat="none")
+    reduced = {}
+    if depth is not None:
+        reduced["num_layers"] = [cfg.num_layers, depth]
+        cfg = cfg.with_(num_layers=depth)
     max_len = prompt_len + n_new
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_params(cfg, gen, dtype=dtype, device="cuda")
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device="cuda")
+    enc = {}
+    if cfg.is_encdec:
+        enc["enc_frames"] = torch.randn((batch, prompt_len // ENC_FRAMES_DIV, cfg.d_model),
+                                        generator=gen, device="cuda").to(dtype)
     torch.cuda.synchronize()
     want = expected_launches(cfg)
     steps = {}
@@ -834,7 +965,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
     # the main path: prefill, handoff, decode, with every count set to 0 here
     reset_launches()
     # 1. kernel prefill: one launch per layer of each kernel it runs
-    (logits, kv), prefill_ms = wall_ms(lambda: prefill_forward(cfg, params, prompts))
+    (logits, kv), prefill_ms = wall_ms(lambda: prefill_forward(cfg, params, prompts, **enc))
     if read_launches() != want:
         raise AssertionError(f"{arch} prefill launched {read_launches()}, expected {want}")
     if logits.shape != (batch, cfg.vocab_size) or not torch.isfinite(logits).all():
@@ -894,7 +1025,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
     dt = str(dtype).removeprefix("torch.")
     if dtype != torch.float32:
         # 6'. accuracy, calibrated by the plain path in the same type
-        kernel_dist, plain_dist = prefill_distances(cfg, params, prompts, logits)
+        kernel_dist, plain_dist = prefill_distances(cfg, params, prompts, logits, enc)
         steps["accuracy"] = {"kernel_logits_max_abs_dist": kernel_dist,
                              "plain_logits_max_abs_dist": plain_dist,
                              "ratio": kernel_dist / plain_dist if plain_dist else None,
@@ -905,19 +1036,51 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
                                  f"{plain_dist}")
         out = {"phase": f"serve_{dt.replace('float', 'f')}", "arch": arch, "batch": batch,
                "prompt": prompt_len, "max_len": max_len, "new_tokens": n_new, "dtype": dt,
-               "main_path_launches": main_launches, "steps": steps}
+               "reduced": reduced, "main_path_launches": main_launches, "steps": steps}
         emit(out)
-        return out, (cfg, params, prompts)
+        return out, (cfg, params, prompts, enc)
 
-    # 6. plain prefill: logits and every cache leaf within 2e-3 of the kernel's
+    # 6. plain prefill: logits and every cache leaf within 2e-3 of the
+    #    kernel's. MoE: both prefills run again with every route call
+    #    recorded; a batch row that a differing pick reaches is reported and
+    #    left out, the other rows are held.
     plain_cfg = cfg.with_(use_pallas=False)
-    (plain_logits, plain_kv), plain_ms = wall_ms(
-        lambda: prefill_forward(plain_cfg, params, prompts))
+    flips, rows = [], set()
+    if cfg.num_experts:
+        with RouteRecorder() as kernel_routes:
+            again = prefill_forward(cfg, params, prompts, **enc)[0]
+        if not torch.equal(again, logits):
+            raise AssertionError(f"{arch}: a second kernel prefill gave other logits")
+        with RouteRecorder() as plain_routes:
+            (plain_logits, plain_kv), plain_ms = wall_ms(
+                lambda: prefill_forward(plain_cfg, params, prompts, **enc))
+        flips, rows = route_flips(cfg, kernel_routes.calls, plain_routes.calls, prompt_len)
+        del kernel_routes, plain_routes, again
+        unexplained = [f for f in flips if f["first"] and not f["router_input_within_2e-3"]]
+        if unexplained:
+            raise AssertionError(f"{arch}: route picks differ where the router's input "
+                                 f"disagrees beyond 2e-3: {unexplained[:4]}")
+        if len(rows) == batch:
+            raise AssertionError(f"{arch}: route differences reach every batch row: "
+                                 f"{flips[:8]}")
+    else:
+        (plain_logits, plain_kv), plain_ms = wall_ms(
+            lambda: prefill_forward(plain_cfg, params, prompts, **enc))
+    held = torch.tensor([b for b in range(batch) if b not in rows], device="cuda")
     steps["plain_prefill"] = {
         "wall_ms": plain_ms,
-        "logits_max_abs_err": _close("logits", logits, plain_logits),
-        **{f"{n}_max_abs_err": _close(n, kv[n], plain_kv[n]) for n in sorted(kv)},
+        "rows_held": held.tolist(),
+        "logits_max_abs_err": _close("logits", logits[held], plain_logits[held]),
+        **{f"{n}_max_abs_err": _close(n, kv[n][:, held], plain_kv[n][:, held])
+           for n in sorted(kv)},
     }
+    if cfg.num_experts:
+        steps["plain_prefill"]["route_differences"] = flips
+        steps["plain_prefill"]["flipped_picks"] = sum(f["picks_differ"] for f in flips)
+        # not gated: the rows left out, as far apart as they are
+        out_rows = torch.tensor(sorted(rows), dtype=torch.long, device="cuda")
+        steps["plain_prefill"]["rows_left_out_logits_max_abs_err"] = (
+            (logits[out_rows] - plain_logits[out_rows]).abs().max().item() if rows else None)
     del plain_kv, kv
 
     # 7. the reference's own entry point: replay prefill, disaggregated,
@@ -925,12 +1088,12 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
     short = prompts[:, :REPLAY_PROMPT].contiguous()
     replay_len = REPLAY_PROMPT + REPLAY_NEW
     retried_before = engine.slices_retried
-    result, gen_ms = wall_ms(lambda: server.generate(short, REPLAY_NEW, replay_len))
-    mono = monolithic_generate(cfg, params, short, REPLAY_NEW, replay_len)
+    result, gen_ms = wall_ms(lambda: server.generate(short, REPLAY_NEW, replay_len, **enc))
+    mono = monolithic_generate(cfg, params, short, REPLAY_NEW, replay_len, **enc)
     if not np.array_equal(result.tokens, mono):
         raise AssertionError("server.generate tokens differ from monolithic_generate")
     # not gated: kernel prefill vs replay prefill on the same short prompts
-    k_logits, k_cache = prefill_forward(cfg, params, short)
+    k_logits, k_cache = prefill_forward(cfg, params, short, **enc)
     k_tokens = greedy_decode(cfg, params, decode_cache(cfg, k_cache, replay_len), k_logits,
                              REPLAY_PROMPT, REPLAY_NEW)
     steps["replay_generate"] = {
@@ -941,10 +1104,12 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
         "tokens_compared": int(result.tokens.size),
     }
     out = {"phase": "serve", "arch": arch, "batch": batch, "prompt": prompt_len,
-           "max_len": max_len, "new_tokens": n_new, "dtype": dt,
+           "max_len": max_len, "new_tokens": n_new, "dtype": dt, "reduced": reduced,
            "main_path_launches": main_launches, "steps": steps}
+    if enc:
+        out["enc_frames"] = enc["enc_frames"].shape[1]
     emit(out)
-    return out, (cfg, params, prompts)
+    return out, (cfg, params, prompts, enc)
 
 
 # ----------------------------------------------------------------------- profile
@@ -973,18 +1138,110 @@ def _profiled(fn, top: int = 8) -> dict:
                      "device_ms": e.self_device_time_total / 1e3} for e in rows[:top]]}
 
 
-def phase_profile(cfg, params, prompts) -> dict:
+def phase_profile(cfg, params, prompts, enc) -> dict:
     """Where a serve phase's time goes: one kernel prefill and eight greedy
     decode steps, each profiled once after a warm call."""
     prompt_len = prompts.shape[1]
-    prefill = lambda: prefill_forward(cfg, params, prompts)  # noqa: E731
+    prefill = lambda: prefill_forward(cfg, params, prompts, **enc)  # noqa: E731
     logits, kv = prefill()
     cache = decode_cache(cfg, kv, prompt_len + 9)
     decode = lambda: greedy_decode(cfg, params, cache, logits, prompt_len, 9)  # noqa: E731
     decode()
-    res = {"phase": "profile", "arch": cfg.name,
+    res = {"phase": "profile", "arch": cfg.name, "num_layers": cfg.num_layers,
            "dtype": str(params["embed"].dtype).removeprefix("torch."), "prefill": _profiled(prefill),
            "decode_8_steps": _profiled(decode)}
+    emit(res)
+    return res
+
+
+# --------------------------------------------------------------------- moe_layer
+def moe_bound(cfg, T, kept, experts_used, dtype) -> tuple:
+    """Least time for the MoE FFN on this run's routing: the router's D x E
+    product per token (float32, as `route` computes it) and the three
+    expert products of each kept (token, expert) pair (6 D F flops), against
+    the bytes of x and the output once, the router, and the weights of the
+    experts the kept pairs use. Returns (ms, bound_by)."""
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    el = torch.finfo(dtype).bits // 8
+    t_ops = 6.0 * D * F_ * kept / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32) + (
+        2.0 * T * D * E / PEAK_F32)
+    t_bytes = (el * (3 * D * F_ * experts_used + 2 * T * D + D * E)) / HBM_BPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def moe_bound_all_slots(cfg, T, dtype) -> tuple:
+    """The same for what `moe_ffn_sorted` computes whatever the routing:
+    every one of the E x C capacity slots and every expert's weights."""
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    slots = E * moe_mod.capacity(cfg, T)
+    el = torch.finfo(dtype).bits // 8
+    return _bound(6.0 * D * F_ * slots, el * 3 * D * F_ * E, dtype)
+
+
+def phase_moe_layer() -> dict:
+    """qwen3-moe-235b-a22b's MoE FFN alone at full width (128 experts of
+    4096 x 1536, top 8), random weights from the seed as `init_params`
+    draws them, at the prefill's T = 4096 (B = 4 x 1024) and decode's T = 4,
+    f32 and bf16. Times by CUDA events and device times by the profiler:
+    the layer, and three of its parts on inputs of their own shapes
+    (routing; the expert products on (E, C, D) buckets; the combine of
+    T x k rows); the dispatch (sort, bucket table, gathers) is the layer's
+    device time less the parts'. Device ms by kernel from the profiler."""
+    cfg = get_config(MOE_ARCH)
+    D, F_, E, k = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.experts_per_token
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p32 = {"router": dense_init(gen, D, (D, E), torch.float32)}
+    for name, shape in (("w_down", (E, F_, D)), ("w_gate", (E, D, F_)), ("w_up", (E, D, F_))):
+        p32[name] = dense_init(gen, shape[-2], shape, torch.float32)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix("torch.")
+        p = {n: t.to(dtype) for n, t in p32.items()}
+        for T in MOE_TOKENS:
+            C = moe_mod.capacity(cfg, T)
+            x = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
+            out, aux = moe_mod.moe_ffn_sorted(cfg, p, x)
+            if out.shape != (T, D) or out.dtype != dtype or not torch.isfinite(out).all():
+                raise AssertionError(f"moe_ffn_sorted at T={T} {dt}: bad output")
+            _, idx, _ = moe_mod.route(x, p["router"], k)
+            keep = _kept(idx, C, E)
+            kept = int(keep.sum())
+            if kept != T * k - int(aux["dropped"]):
+                raise AssertionError(f"moe_ffn_sorted at T={T} {dt}: dropped disagrees")
+            experts_used = int(torch.unique(idx[keep]).numel())
+            order = torch.argsort(idx.reshape(-1), stable=True)
+            xe = torch.randn((E, C, D), generator=gen, device="cuda").to(dtype)
+            contrib = torch.randn((T * k, D), generator=gen, device="cuda").to(dtype)
+            iters = 5 if T > 64 else 20
+            layer = lambda: moe_mod.moe_ffn_sorted(cfg, p, x)  # noqa: E731
+            parts = {
+                "route": lambda: moe_mod.route(x, p["router"], k),
+                "experts": lambda: moe_mod._expert_ffn(xe, p["w_gate"], p["w_up"], p["w_down"]),
+                "combine": lambda: moe_mod._combine(contrib, order, T, k, dtype),
+            }
+            times = {}
+            for name, fn in parts.items():
+                times[f"{name}_ms"] = cuda_ms(fn, iters)
+                times[f"{name}_device_ms"] = device_ms(fn, "", iters)[0]
+            ms, dev = cuda_ms(layer, iters), device_ms(layer, "", iters)[0]
+            part_dev = [times[f"{name}_device_ms"] for name in parts]
+            bound, bound_by = moe_bound(cfg, T, kept, experts_used, dtype)
+            all_bound, all_by = moe_bound_all_slots(cfg, T, dtype)
+            rows[f"{dt}_T{T}"] = {
+                "T": T, "capacity": C, "slots": E * C, "dropped": int(aux["dropped"]),
+                "kept_pairs": kept, "experts_used": experts_used, "ms": ms, "device_ms": dev,
+                **times,
+                "dispatch_device_ms": (dev - sum(part_dev)
+                                       if dev is not None and None not in part_dev else None),
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_ms_all_slots": all_bound, "bound_by_all_slots": all_by,
+                "library_ms": None,  # no single PyTorch call computes a routed MoE FFN
+                "profile": _profiled(layer, top=10),
+            }
+            del x, out, xe, contrib
+        del p
+    res = {"phase": "moe_layer", "arch": MOE_ARCH, "experts": E, "top_k": k,
+           "d_model": D, "d_ff": F_, "rows": rows}
     emit(res)
     return res
 
@@ -1905,9 +2162,9 @@ def main() -> int:
     kv = phase_kv_path()  # counts its main path only
     for name in ("kv_pack", "kv_unpack"):
         launches[name]["kv_path"] = kv["launches"][name]
-    for arch, batch, prompt_len, n_new, dtype in SERVES:
+    for arch, batch, prompt_len, n_new, dtype, depth in SERVES:
         # counts its main path only
-        serve, model = phase_serve(arch, batch, prompt_len, n_new, dtype)
+        serve, model = phase_serve(arch, batch, prompt_len, n_new, dtype, depth)
         path = arch if dtype == torch.float32 else f"{arch}/{serve['dtype']}"
         for name, n in serve["main_path_launches"].items():
             if n:
@@ -1915,6 +2172,8 @@ def main() -> int:
         phase_profile(*model)
         del serve, model
         torch.cuda.empty_cache()
+    phase_moe_layer()
+    torch.cuda.empty_cache()
     phase_hicache()
     _, jit_off = phase_scenarios()
     jit_main = jit_core_main_path()

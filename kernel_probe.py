@@ -7,6 +7,7 @@
     python3 kernel_probe.py time             # SSD and flash times, the SSD split by kernel
     python3 kernel_probe.py engine           # the engine's fp64 kernels and the padded shapes
     python3 kernel_probe.py drain            # the completion drain alone: checks, times, staging A/B
+    python3 kernel_probe.py families         # the MoE and enc-dec serve phases, flash at their shapes
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -28,6 +29,10 @@ on the mapped staging buffer against a copy in, launch and copy back) and
 prices each piece of its call
 (`drain_call_costs`), and times spray_sim at the
 flap's 64 lanes with a lane a block and with two lanes a warp, in turns.
+`families` runs `chip_smoke.py`'s phases for the MoE and enc-dec models
+alone: flash attention checked and timed at qwen3-moe's and seamless-m4t's
+prefill shapes, the qwen3-moe-235b-a22b (f32 depth 2, bf16 depth 4) and
+seamless-m4t-medium serve phases with their profiles, and `moe_layer`.
 """
 from __future__ import annotations
 
@@ -287,6 +292,26 @@ def engine() -> int:
     return 1 if bad else 0
 
 
+def families() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    cs.phase_env()
+    for shape in (cs.QWEN3_MOE_FLASH_SHAPE, cs.SEAMLESS_FLASH_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            case, _ = cs._check_case(shape, dtype, 0, seed=1)
+            print("flash", json.dumps(cs._flash_timing(shape, dtype, case)), flush=True)
+    for entry in cs.SERVES:
+        if entry[0] in (cs.MOE_ARCH, "seamless-m4t-medium"):
+            serve, model = cs.phase_serve(*entry)
+            cs.phase_profile(*model)
+            del serve, model
+            torch.cuda.empty_cache()
+    cs.phase_moe_layer()
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "build":
@@ -299,5 +324,7 @@ if __name__ == "__main__":
         sys.exit(engine())
     if mode == "drain":
         sys.exit(drain())
+    if mode == "families":
+        sys.exit(families())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

@@ -2,6 +2,7 @@ from .convert import params_from_numpy
 from .model import (
     DecoderLM,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -11,6 +12,6 @@ from .model import (
 )
 
 __all__ = [
-    "DecoderLM", "decode_step", "forward", "init_cache", "init_params",
+    "DecoderLM", "decode_step", "encode", "forward", "init_cache", "init_params",
     "param_shapes", "params_from_numpy", "prefill", "prefill_forward",
 ]

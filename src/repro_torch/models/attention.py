@@ -3,7 +3,9 @@
 Torch counterparts of `repro.models.attention`. The plain paths are the
 default; when `cfg.use_pallas` is set, the prefill path dispatches to the
 flash-attention kernel (the Hopper kernel on CUDA tensors, its plain
-version on CPU tensors). Cross-attention (enc-dec) is not ported yet.
+version on CPU tensors). The enc-dec family's encoder attends without a
+mask and its decoder across to the encoder through the plain paths, as
+the reference's do.
 """
 from __future__ import annotations
 
@@ -86,6 +88,14 @@ def attend_cached(
     scores = torch.where(vmask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _gqa_combine(probs, v_cache)
+
+
+def attend_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bidirectional cross-attention (decoder -> encoder memory): q
+    [B,S,H,Hd] over k/v [B,S_enc,K,Hd], no mask."""
+    scores = _gqa_scores(q, k).float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _gqa_combine(probs, v)
 
 
 def attend_chunked(

@@ -1,83 +1,95 @@
-"""Decoder-only LM (dense, vlm, ssm and hybrid families) in torch.
+"""One model definition for every family of the reference, in torch.
 
-Counterpart of `repro.models.model`. Parameters keep the reference's
-stacked-dict layout, `{"embed", "final_norm", "layers": {name: (L, ...)}}`
-(plus "lm_head" when embeddings are untied), so `params_from_numpy` maps
-the reference's pytree onto it leaf for leaf. The reference's `lax.scan`
-over layers is a Python loop over the layer axis. Entry points:
+Counterpart of `repro.models.model`, parameterized by ModelConfig:
+  dense / vlm      -> GQA attention + SwiGLU FFN decoder
+  moe              -> GQA attention + top-k expert FFN (sorted dispatch)
+  ssm              -> Mamba2 SSD mixer blocks (attention-free)
+  hybrid           -> parallel attention + SSM heads per layer + FFN
+  audio (enc-dec)  -> bidirectional encoder over frame embeddings + causal
+                      decoder with cross-attention
+
+Parameters keep the reference's stacked-dict layout, `{"embed",
+"final_norm", "layers": {name: (L, ...)}}` (plus "lm_head" when embeddings
+are untied, and "encoder": {"layers", "final_norm"} for enc-dec), so
+`params_from_numpy` maps the reference's pytree onto it leaf for leaf. The
+reference's `lax.scan` over layers is a Python loop over the layer axis.
+Entry points:
 
   param_shapes / init_params      parameters
-  forward                         causal LM forward
+  forward                         causal LM forward (+ MoE aux losses)
   prefill_forward                 serving prefill, returns the decode cache
   init_cache / decode_step        decode caches and the single-token step
   prefill                         replay prefill through decode_step
+  encode                          audio encoder (enc-dec only)
   DecoderLM                       an nn.Module holding the parameters
 
 SSM layers are Mamba2 mixers (`ssm.py`); hybrid layers run attention and
-the mixer in parallel from the same input and average them. MoE and
-enc-dec configs raise NotImplementedError.
+the mixer in parallel from the same input and average them. MoE layers
+call `moe.moe_ffn_sorted` where the reference calls `moe_ffn_ep`, which
+is `moe_ffn_sorted` without a mesh.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
-from .attention import attend_cached, cache_update, prefill_attention
+from .attention import attend_cached, attend_cross, attend_full, cache_update, prefill_attention
 from .common import apply_rope, dense_init, embed_init, rms_norm, rope_angles, swiglu
+from .moe import moe_ffn_sorted, moe_param_shapes
 from .ssm import mamba2_mixer, mamba2_mixer_step, mixer_param_shapes
 
 Params = Dict[str, Any]
-
-_NOT_PORTED = {
-    "moe": "ROADMAP queue 1 (models/moe.py)",
-    "encdec": "ROADMAP queue 1 (enc-dec cross-attention)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    """The dense, vlm, ssm and hybrid families are ported."""
-    if cfg.num_experts > 0:
-        fam = "moe"
-    elif cfg.is_encdec:
-        fam = "encdec"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {fam} family is not ported to repro_torch yet; "
-        f"see {_NOT_PORTED[fam]}")
 
 
 # ---------------------------------------------------------------------------
 # Parameter construction
 # ---------------------------------------------------------------------------
 
-def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     D, H, K, Hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    s: Dict[str, tuple] = {"ln1": (D,)}
-    if cfg.arch_type == "ssm":
-        s.update(mixer_param_shapes(cfg))
-        return s
-    s.update({
+    s = {
         "wq": (D, H * Hd),
         "wk": (D, K * Hd),
         "wv": (D, K * Hd),
         "wo": (H * Hd, D),
-    })
+    }
     if cfg.qkv_bias:
         s.update({"bq": (H * Hd,), "bk": (K * Hd,), "bv": (K * Hd,)})
-    if cfg.hybrid:
-        s.update(mixer_param_shapes(cfg))
-    s["ln2"] = (D,)
-    s.update({"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D)})
     return s
 
 
+def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    D = cfg.d_model
+    return {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D)}
+
+
+def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    D = cfg.d_model
+    s: Dict[str, tuple] = {"ln1": (D,)}
+    if cfg.arch_type == "ssm":
+        s.update(mixer_param_shapes(cfg))
+        return s
+    s.update(_attn_shapes(cfg))
+    if cfg.hybrid:
+        s.update(mixer_param_shapes(cfg))
+    s["ln2"] = (D,)
+    s.update(moe_param_shapes(cfg) if cfg.num_experts > 0 else _ffn_shapes(cfg))
+    if cfg.is_encdec:
+        s["lnx"] = (D,)
+        s.update({f"x{k}": v for k, v in _attn_shapes(cfg).items() if not k.startswith("b")})
+    return s
+
+
+def _encoder_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    D = cfg.d_model
+    return {"ln1": (D,), "ln2": (D,), **_attn_shapes(cfg), **_ffn_shapes(cfg)}
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_family(cfg)
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     out: Dict[str, Any] = {
         "embed": (V, D),
@@ -86,17 +98,25 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = (D, V)
+    if cfg.is_encdec:
+        Le = cfg.encoder_layers
+        out["encoder"] = {
+            "layers": {k: (Le,) + v for k, v in _encoder_layer_shapes(cfg).items()},
+            "final_norm": (D,),
+        }
     return out
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
                 device: DeviceLike = None) -> Params:
     """Random parameters on `device` (CUDA unless the caller asks for the
-    CPU): matrices Normal(0, fan_in**-0.5), embeddings Normal(0, 0.02),
-    norms ones, biases zeros, and the reference's Mamba2 values for the SSM
+    CPU): matrices Normal(0, fan_in**-0.5) with fan_in = shape[-2] (the
+    router, the (E, D, F)/(E, F, D) expert leaves and the cross-attention
+    leaves too), embeddings Normal(0, 0.02), norms ones, biases zeros, and the reference's Mamba2 values for the SSM
     leaves (A_log = log(1..nheads), D = 1, dt_bias = -2, conv weights
     Normal(0, 0.1), conv bias 0). `gen` must live on that device. Drawn leaf by
-    leaf in sorted-key order; a torch generator does not give the
+    leaf in sorted-key order (the encoder's subtree in its place among the
+    top-level keys); a torch generator does not give the
     reference's jax.random bits (tests convert the reference's parameters
     with `params_from_numpy` instead)."""
     dev = default_device(device)
@@ -122,13 +142,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
             return embed_init(gen, shape, dtype)
         return dense_init(gen, shape[-2], shape, dtype)
 
-    params: Params = {}
-    for name in sorted(shapes):
-        if name == "layers":
-            params[name] = {k: mk(k, s) for k, s in sorted(shapes[name].items())}
-        else:
-            params[name] = mk(name, shapes[name])
-    return params
+    def build(tree: Dict[str, Any]) -> Params:
+        return {name: build(sub) if isinstance(sub, dict) else mk(name, sub)
+                for name, sub in sorted(tree.items())}
+
+    return build(shapes)
+
+
+def _frozen(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
 
 
 class DecoderLM(nn.Module):
@@ -137,21 +159,24 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
-        _check_family(cfg)
         self.cfg = cfg
-        top = {k: v for k, v in params.items() if k != "layers"}
-        self.top = nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False) for k, v in top.items()})
-        self.layers = nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False) for k, v in params["layers"].items()})
+        self.top = _frozen({k: v for k, v in params.items() if k not in ("layers", "encoder")})
+        self.layers = _frozen(params["layers"])
+        if "encoder" in params:
+            self.encoder_layers = _frozen(params["encoder"]["layers"])
+            self.encoder_top = _frozen({"final_norm": params["encoder"]["final_norm"]})
 
     def tree(self) -> Params:
         out: Params = dict(self.top.items())
         out["layers"] = dict(self.layers.items())
+        if hasattr(self, "encoder_layers"):
+            out["encoder"] = {"layers": dict(self.encoder_layers.items()),
+                              **dict(self.encoder_top.items())}
         return out
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.cfg, self.tree(), tokens)[0]
+    def forward(self, tokens: torch.Tensor,
+                enc_frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return forward(self.cfg, self.tree(), tokens, enc_frames=enc_frames)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -191,17 +216,51 @@ def _ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
     return out
 
 
+def _project_q(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    B, S, _ = h.shape
+    return (h @ w).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _project_kv_cross(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor):
+    """The decoder layer's cross-attention K/V over the encoder's output:
+    (B, S_enc, K, Hd) each, no RoPE."""
+    B, Se, _ = enc_out.shape
+    K, Hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return ((enc_out @ lp["xwk"]).reshape(B, Se, K, Hd),
+            (enc_out @ lp["xwv"]).reshape(B, Se, K, Hd))
+
+
+def _cross_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, kx: torch.Tensor,
+                 vx: torch.Tensor) -> torch.Tensor:
+    """x + cross-attention of the normed x over the encoder's K/V."""
+    hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
+    a = attend_cross(_project_q(cfg, lp["xwq"], hx), kx, vx)
+    return x + a.reshape(x.shape[0], x.shape[1], -1) @ lp["xwo"]
+
+
+def _ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x + the FFN of the normed x (SwiGLU, or the MoE FFN over the B*S
+    tokens); returns the MoE aux losses ({} for a dense FFN)."""
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.num_experts == 0:
+        return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
+    y, aux = moe_ffn_sorted(cfg, lp, h2.reshape(-1, h2.shape[-1]))
+    return x + y.reshape(h2.shape), aux
+
+
 def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
-                   collect_cache: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One layer over the whole sequence; returns (x, this layer's decode
-    cache, empty unless `collect_cache`)."""
+                   enc_out: Optional[torch.Tensor] = None, collect_cache: bool = False
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One layer over the whole sequence; returns (x, MoE aux losses, this
+    layer's decode cache, empty unless `collect_cache`)."""
     cache: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.arch_type == "ssm":
         y, st, conv_tail = mamba2_mixer(cfg, lp, h)
         if collect_cache:
             cache = {"ssm_state": st.float(), "conv_buf": conv_tail}
-        return x + y, cache
+        return x + y, {}, cache
     q, k, v = _project_qkv(cfg, lp, h, positions)
     a = prefill_attention(q, k, v, window=cfg.sliding_window, use_pallas=cfg.use_pallas)
     attn = a.reshape(a.shape[0], a.shape[1], -1) @ lp["wo"]
@@ -216,8 +275,40 @@ def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: tor
             cache.update({"ssm_state": st.float(), "conv_buf": conv_tail})
         mixed = 0.5 * (attn + y)  # Hymba-style parallel head fusion
     x = x + mixed
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), cache
+    if cfg.is_encdec and enc_out is not None:
+        kx, vx = _project_kv_cross(cfg, lp, enc_out)
+        x = _cross_block(cfg, lp, x, kx, vx)
+        if collect_cache:
+            cache.update({"enc_k": kx, "enc_v": vx})
+    x, aux = _ffn_block(cfg, lp, x)
+    return x, aux, cache
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over precomputed frame embeddings (B, S, D):
+    RoPE'd self-attention without a mask through the plain path (the
+    reference's `attend_full(causal=False)`), then SwiGLU."""
+    enc = params["encoder"]
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        lp = _layer(enc["layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(cfg, lp, h, positions)
+        a = attend_full(q, k, v, causal=False)
+        x = x + a.reshape(x.shape[0], x.shape[1], -1) @ lp["wo"]
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _encoder_output(cfg: ModelConfig, params: Params,
+                    enc_frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if not cfg.is_encdec:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name}: the enc-dec family needs enc_frames (B, S_enc, D)")
+    return encode(cfg, params, enc_frames)
 
 
 def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -227,38 +318,48 @@ def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     return (x @ head).float()
 
 
-def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            enc_frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal forward. tokens: (B, S) int -> logits (B, S, V) fp32 + aux
-    (the MoE aux losses, zero for the ported families)."""
-    _check_family(cfg)
+    """Causal forward. tokens: (B, S) int -> logits (B, S, V) fp32 + aux:
+    the MoE aux losses summed over layers and divided by max(L, 1) (zero
+    for families without experts). enc_frames (B, S_enc, D) for enc-dec."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)
+    enc_out = _encoder_output(cfg, params, enc_frames)
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    zl = torch.zeros((), dtype=torch.float32, device=x.device)
     lp = params["layers"]
     for i in range(cfg.num_layers):
-        x, _ = _decoder_layer(cfg, _layer(lp, i), x, positions)
+        x, aux, _ = _decoder_layer(cfg, _layer(lp, i), x, positions, enc_out)
+        if aux:
+            lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, x), {"lb_loss": zero, "z_loss": zero}
+    denom = max(cfg.num_layers, 1)
+    return _logits(params, x), {"lb_loss": lb / denom, "z_loss": zl / denom}
 
 
-def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+                    enc_frames: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Serving prefill: one parallel pass over the prompt that RETURNS the
     decode cache -- the PD-disaggregation elephant flow. Returns (last-token
     logits (B, V) fp32, cache): per-layer "k", "v" (L, B, S or window, K,
     Hd), in ring order under a sliding window, for attention layers;
     "ssm_state" (L, B, nheads, headdim, N) fp32 and "conv_buf" (L, B,
-    conv-1, conv_dim) for Mamba2 layers."""
-    _check_family(cfg)
+    conv-1, conv_dim) for Mamba2 layers; "enc_k", "enc_v" (L, B, S_enc,
+    K, Hd), the cross-attention K/V over the encoder's output, for
+    enc-dec (which needs enc_frames)."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)
+    enc_out = _encoder_output(cfg, params, enc_frames)
     lp = params["layers"]
     caches = []
     for i in range(cfg.num_layers):
-        x, cache = _decoder_layer(cfg, _layer(lp, i), x, positions, collect_cache=True)
+        x, _, cache = _decoder_layer(cfg, _layer(lp, i), x, positions, enc_out,
+                                     collect_cache=True)
         caches.append(cache)
     x_last = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     stacked = {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
@@ -270,10 +371,10 @@ def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+               device: DeviceLike = None, *, enc_len: int = 0) -> Dict[str, torch.Tensor]:
     """Zeroed decode caches, laid out as the reference's `init_cache`; the
-    SSM state is fp32 whatever `dtype` is."""
-    _check_family(cfg)
+    SSM state is fp32 whatever `dtype` is. enc-dec adds "enc_k"/"enc_v"
+    of `enc_len` encoder positions."""
     L, K, Hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     W = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
     dev = default_device(device)
@@ -287,6 +388,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                                          dtype=torch.float32, device=dev)
         cache["conv_buf"] = torch.zeros((L, batch, cfg.ssm_conv - 1, di + 2 * N),
                                         dtype=dtype, device=dev)
+    if cfg.is_encdec:
+        for name in ("enc_k", "enc_v"):
+            cache[name] = torch.zeros((L, batch, enc_len, K, Hd), dtype=dtype, device=dev)
     return cache
 
 
@@ -306,8 +410,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for the whole (synchronized) batch: token (B, 1) at
     position `pos`. Writes the new K/V, conv buffers and SSM states into
-    `cache` in place and returns (logits (B, V) fp32, cache)."""
-    _check_family(cfg)
+    `cache` in place and returns (logits (B, V) fp32, cache). MoE layers
+    route the B tokens with the capacity of T = B."""
     pos = int(pos)
     x = params["embed"][token.long()]
     positions = torch.full((1,), pos, device=x.device)
@@ -326,20 +430,31 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
         if cfg.hybrid:
             mixed = 0.5 * (mixed + _mixer_step(cfg, p, h, cache, i))
         x = x + mixed
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+        if cfg.is_encdec:
+            x = _cross_block(cfg, p, x, cache["enc_k"][i], cache["enc_v"][i])
+        x, _ = _ffn_block(cfg, p, x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x)[:, 0], cache
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int, *,
+            enc_frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt token by token through `decode_step` to build a decode
-    cache of width `max_len`. This replay reaches neither the
-    flash-attention kernel nor the SSD-scan kernel."""
+    cache of width `max_len` (enc-dec: the encoder runs first and fills
+    "enc_k"/"enc_v"). This replay reaches neither the flash-attention
+    kernel nor the SSD-scan kernel."""
     B, S = tokens.shape
     emb = params["embed"]
-    cache = init_cache(cfg, B, max_len, dtype=emb.dtype, device=emb.device)
+    enc_out = _encoder_output(cfg, params, enc_frames)
+    enc_len = 0 if enc_out is None else enc_out.shape[1]
+    cache = init_cache(cfg, B, max_len, dtype=emb.dtype, device=emb.device, enc_len=enc_len)
+    if enc_out is not None:
+        lp = params["layers"]
+        for i in range(cfg.num_layers):
+            kx, vx = _project_kv_cross(cfg, _layer(lp, i), enc_out)
+            cache["enc_k"][i].copy_(kx)
+            cache["enc_v"][i].copy_(vx)
     last = torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=emb.device)
     for t in range(S):
         last, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1], t)

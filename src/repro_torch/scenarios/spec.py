@@ -429,10 +429,9 @@ class EngineParams:
     candidate_cache: bool = True
     wave_complete: bool = True
     wave_min: Union[int, None] = None
-    # kept so specs round-trip with the reference package, whose jitted
-    # fixed-shape chooser/drain kernels it selects; the port's engine does
-    # not have them yet and raises NotImplementedError when it is set
-    # (see EngineConfig.jit_core)
+    # selects the jitted fixed-shape chooser/drain kernels, as in the
+    # reference package (specs round-trip with it); the port runs them as
+    # CUDA kernels on the engine's device (see EngineConfig.jit_core)
     jit_core: bool = False
     # runs the fabric event loop on the calendar queue (bucketed timestamp
     # wheel) instead of the binary heap; bit-identical pop order, O(1)

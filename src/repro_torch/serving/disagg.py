@@ -13,7 +13,7 @@ keys sorted), metas carrying numpy dtype names ("float32", "bfloat16").
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,10 +115,14 @@ class DisaggregatedServer:
         return dst, batch
 
     def generate(self, prompt: torch.Tensor, n_new: int, max_len: int,
+                 enc_frames: Optional[torch.Tensor] = None,
                  *, async_handoff: bool = False) -> DisaggResult:
+        """enc_frames (B, S_enc, D): the encoder's input, enc-dec only; its
+        cross-attention K/V ride in the shipped cache."""
         B, S = prompt.shape
         # ---- prefill pool ----
-        last_logits, cache = prefill(self.cfg, self.params, prompt, max_len)
+        last_logits, cache = prefill(self.cfg, self.params, prompt, max_len,
+                                     enc_frames=enc_frames)
         # ---- ship the cache through TENT ----
         data, _ = tree_to_bytes(cache)
         t0 = self.engine.fabric.now
@@ -146,7 +150,7 @@ class DisaggregatedServer:
 
 
 def monolithic_generate(cfg: ModelConfig, params: Any, prompt: torch.Tensor, n_new: int,
-                        max_len: int) -> np.ndarray:
+                        max_len: int, enc_frames: Optional[torch.Tensor] = None) -> np.ndarray:
     B, S = prompt.shape
-    last_logits, cache = prefill(cfg, params, prompt, max_len)
+    last_logits, cache = prefill(cfg, params, prompt, max_len, enc_frames=enc_frames)
     return greedy_decode(cfg, params, cache, last_logits, S, n_new)

@@ -167,13 +167,6 @@ def test_init_params_defaults_to_cuda_and_never_follows_the_generator():
         models.init_params(cfg, gen, dtype=torch.float32)
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "seamless-m4t-medium"])
-def test_unported_families_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.param_shapes(cfg)
-
-
 def _qkv(seed, B_, S_, H, K, D):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape, dtype=np.float32)
