@@ -45,6 +45,30 @@ Phases, one JSON line each on stdout:
            (layer by layer) no further than 1.5x the plain bf16 prefill is.
   profile  device time by op (torch.profiler) over one prefill and eight
            decode steps of each serve phase, and the device's busy share.
+  train    the training path (`repro_torch.training`) at full width and
+           depth: qwen2-0.5b's 494,032,768 params in bf16 with fp32
+           moments and per-layer remat, B=4 x 1024 tokens from
+           SyntheticTokens(seed=0), 8 AdamW steps (warmup 1) through
+           `make_train_step`, plain attention (no kernel has a backward
+           pass; none may launch). Every loss and grad norm finite, the
+           mean of the last 3 losses below the first 3's, step 0's loss
+           equal to `loss_fn` under no_grad within 1e-6; step ms (CUDA
+           events), tokens/s, peak memory, and one step profiled (busy
+           share, top kernels). Then remat on against off at full width,
+           depth 4, f32 (loss and every gradient within 1e-5), and one f32
+           step of the smoke model on the card against the CPU (loss
+           within 1e-5, params within 2 lr).
+  rl_update  the trained params through TENT to 16 ranks: `flatten_state`
+           (988,065,536 bytes), `CheckpointEngine(nodes=2, gpus_per_node=8)`
+           over checkpoint_broadcast with rails (0, 1) and (0, 5) at 25 %
+           (the reference example's fabric), round_robin then tent, each
+           `update(verify=True)`; tent no slower than round_robin (the
+           scenario's tent_vs_baseline). The weights rebuilt from the 16
+           ranks' segments equal the trainer's bit for bit, and a bf16 flash
+           prefill (B=4, 1024 tokens) on them equals the same prefill on the
+           trainer's tensors and differs from step 0's (its 24 flash
+           launches are the path's); an npz round trip through
+           `save_checkpoint`/`load_checkpoint`, bit for bit.
   moe_layer  qwen3-moe-235b-a22b's MoE FFN (`moe_ffn_sorted`) alone at full
            width, at the prefill's T = 4096 and decode's T = 4, f32 and
            bf16: CUDA-event and device times of the layer, of routing, of
@@ -113,6 +137,7 @@ import multiprocessing
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -125,7 +150,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import EngineConfig, Fabric, FabricSpec, TelemetryStore, TentEngine  # noqa: E402
 from repro_torch.core import Topology, jit_core  # noqa: E402
 from repro_torch.core.jit_core import (  # noqa: E402
@@ -152,15 +177,16 @@ from repro_torch.kernels.spray_sim import kernel as sim_kernel  # noqa: E402
 from repro_torch.kernels.spray_sim import spray_sim, spray_sim_ref  # noqa: E402
 from repro_torch.kernels.tent_core import kernel as tc_kernel  # noqa: E402
 from repro_torch.kernels.tent_core import ops as tc_ops  # noqa: E402
-from repro_torch.models import init_params, prefill_forward  # noqa: E402
+from repro_torch.models import init_params, loss_fn, prefill_forward  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
 from repro_torch.obs import FlightRecorder  # noqa: E402
 from repro_torch.obs import events as OBS  # noqa: E402
 from repro_torch.obs.explain import replay_wave  # noqa: E402
-from repro_torch.scenarios import MonteCarloSweep, ScenarioRunner, get, names  # noqa: E402
+from repro_torch.scenarios import FaultEvent, MonteCarloSweep, ScenarioRunner, get, names  # noqa: E402
 from repro_torch.scenarios.sweep import SWEEP_POLICIES, compile_spray_program  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
+    CheckpointEngine,
     DisaggregatedServer,
     HiCache,
     bytes_to_tree,
@@ -172,6 +198,18 @@ from repro_torch.serving import (  # noqa: E402
     monolithic_generate,
     tree_to_bytes,
 )
+from repro_torch.training import (  # noqa: E402
+    AdamWConfig,
+    DataConfig,
+    SyntheticTokens,
+    flatten_state,
+    init_opt_state,
+    load_checkpoint,
+    make_train_step,
+    save_checkpoint,
+    unflatten_like,
+)
+from repro_torch.training.tree import named_leaves, tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16 = 989e12
@@ -235,6 +273,17 @@ MOE_ARCH, MOE_TOKENS = "qwen3-moe-235b-a22b", (4096, 4)  # moe_layer: prefill an
 BF16_GATE = 1.5
 REPLAY_PROMPT, REPLAY_NEW = 256, 16
 SEED = 0
+# train: qwen2-0.5b at full width and depth (494,032,768 params, bf16, fp32
+# moments, remat full), B x S tokens from SyntheticTokens(seed=0) a step;
+# step TRAIN_PROFILED runs under the profiler and is left out of the mean
+TRAIN_ARCH, TRAIN_PARAMS = "qwen2-0.5b", 494_032_768
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = 4, 1024, 8, 4
+REMAT_DEPTH = 4  # remat on against off, full width, f32
+# rl_update: the reference example's fabric (examples/rl_weight_update.py:
+# 26-33), 2 nodes x 8 GPUs with rails (node, nic) degraded to 25 %, and a
+# bf16 flash prefill on the refreshed weights
+RL_NODES, RL_GPUS, RL_DEGRADED = 2, 8, ((0, 1), (0, 5))
+RL_PREFILL_BATCH, RL_PREFILL_LEN = 4, 1024
 # HiCache: full-width qwen2-0.5b pages of 64 tokens (786,432 bytes) in the
 # reference example's three tiers, scaled to these pages
 HICACHE_TIERS, HICACHE_PAGE_TOKENS, HICACHE_CONVO = (64, 128, 256), 64, 4096
@@ -1151,6 +1200,267 @@ def phase_profile(cfg, params, prompts, enc) -> dict:
            "dtype": str(params["embed"].dtype).removeprefix("torch."), "prefill": _profiled(prefill),
            "decode_8_steps": _profiled(decode)}
     emit(res)
+    return res
+
+
+# ------------------------------------------------------------------------- train
+def train_batches(cfg, n, device=None):
+    """The first `n` batches of SyntheticTokens(seed=SEED), TRAIN_BATCH x
+    TRAIN_SEQ tokens each, on `device` (None: the card)."""
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    return [{k: torch.from_numpy(v).to(device or DEV) for k, v in data.example(i).items()}
+            for i in range(n)]
+
+
+def loss_and_grads(cfg, params, batch, remat):
+    """The loss and every leaf's gradient, in the reference's leaf order."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(cfg.with_(remat="full" if remat else "none"), params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def remat_check(cfg) -> dict:
+    """Full width, depth cut to REMAT_DEPTH, f32: the loss and every leaf's
+    gradient with each layer checkpointed against without, within 1e-5
+    (each leaf relative to its largest |g| without remat)."""
+    cfg = cfg.with_(num_layers=REMAT_DEPTH)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = init_params(cfg, gen, dtype=torch.float32, device=DEV)
+    batch = train_batches(cfg, 1)[0]
+    out = {}
+    for remat in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), ms = wall_ms(lambda: loss_and_grads(cfg, params, batch, remat))
+        out[remat] = (loss, grads, ms, torch.cuda.max_memory_allocated())
+    names = [n for n, _ in named_leaves(params)]
+    worst = {n: ((a - b).abs().max() / b.abs().max()).item()
+             for n, a, b in zip(names, out[True][1], out[False][1])}
+    loss_rel = abs(out[True][0].item() - out[False][0].item()) / abs(out[False][0].item())
+    res = {"num_layers": REMAT_DEPTH, "dtype": "float32", "loss": out[False][0].item(),
+           "loss_rel_diff": loss_rel, "worst_grad_rel_diff": max(worst.values()),
+           "worst_leaf": max(worst, key=worst.get),
+           "wall_ms": {"remat": out[True][2], "no_remat": out[False][2]},
+           "max_memory_allocated": {"remat": out[True][3], "no_remat": out[False][3]}}
+    if not (loss_rel <= 1e-5 and max(worst.values()) <= 1e-5):
+        raise AssertionError(f"remat on and off disagree: {res}")
+    return res
+
+
+def card_vs_cpu_step(arch) -> dict:
+    """One f32 train step of the smoke-size model on the card against the
+    same step on the CPU: losses within 1e-5 relative, params within 2 lr
+    everywhere (an Adam step moves a weight by about lr at most, so a tiny
+    gradient whose sign differs moves it the other way)."""
+    cfg = get_smoke_config(arch)
+    step_fn = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS))
+    init = init_params(cfg, torch.Generator().manual_seed(SEED), dtype=torch.float32,
+                       device="cpu")
+    params, metrics = {}, {}
+    for dev in ("cpu", DEV):
+        p = tree_map(lambda t, dev=dev: t.to(dev, copy=True), init)
+        batch = train_batches(cfg, 1, device=dev)[0]
+        params[dev], _, metrics[dev] = step_fn(p, init_opt_state(p), batch)
+    lr = metrics["cpu"]["lr"].item()
+    loss_rel = abs(metrics[DEV]["loss"].item() - metrics["cpu"]["loss"].item()) / abs(
+        metrics["cpu"]["loss"].item())
+    max_dp = max((a.cpu() - b).abs().max().item() for a, b in
+                 zip(tree_leaves(params[DEV]), tree_leaves(params["cpu"])))
+    res = {"arch": cfg.name, "loss_card": metrics[DEV]["loss"].item(),
+           "loss_cpu": metrics["cpu"]["loss"].item(), "loss_rel_diff": loss_rel,
+           "lr": lr, "params_max_abs_diff": max_dp, "params_bound": 2 * lr}
+    if not (loss_rel <= 1e-5 and max_dp <= 2 * lr):
+        raise AssertionError(f"the card's train step differs from the CPU's: {res}")
+    return res
+
+
+def phase_train():
+    """The training path at full width and depth: qwen2-0.5b's 494M params
+    in bf16 with fp32 moments and per-layer remat, as the reference's
+    `train` runs it, over SyntheticTokens(seed=0). Plain attention (no
+    kernel: training has no backward pass through one). Returns (the
+    phase's line, cfg, the trained params)."""
+    cfg = get_config(TRAIN_ARCH).with_(use_pallas=False, remat="full")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = init_params(cfg, gen, device=DEV)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"{cfg.name} has {n_params} params, expected {TRAIN_PARAMS}")
+    opt_state = init_opt_state(params)
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg)
+    batches = train_batches(cfg, TRAIN_STEPS)
+    with torch.no_grad():
+        loss0 = loss_fn(cfg, params, batches[0])[0].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows, profile = [], None
+    for i, batch in enumerate(batches):
+        out = []
+        step = lambda: out.append(step_fn(params, opt_state, batch))  # noqa: E731
+        if i == TRAIN_PROFILED:
+            profile = _profiled(step, top=12)
+            ms = wall = None
+        else:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            wall, ms = (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+        params, opt_state, metrics = out[0]
+        rows.append({"step": i, "loss": metrics["loss"].item(),
+                     "grad_norm": metrics["grad_norm"].item(), "lr": metrics["lr"].item(),
+                     "ms": ms, "wall_ms": wall})
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    losses = [r["loss"] for r in rows]
+    timed = [r["ms"] for r in rows[1:] if r["ms"] is not None]
+    step_ms = float(np.mean(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"phase": "train", "arch": cfg.name, "params": n_params, "dtype": "bfloat16",
+           "moments": "float32", "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": rows, "step_ms_mean": step_ms, "step_ms_steps": f"1-{TRAIN_STEPS - 1} "
+           f"but {TRAIN_PROFILED} (profiled)", "tokens_per_s": tokens / (step_ms / 1e3),
+           "wall_ms_mean": float(np.mean([r["wall_ms"] for r in rows[1:] if r["wall_ms"]])),
+           "max_memory_allocated": peak, "launches": launches,
+           "loss_no_grad_step0": loss0,
+           "step0_rel_diff": abs(losses[0] - loss0) / abs(loss0),
+           "profiled_step": {"step": TRAIN_PROFILED, **profile}}
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"training launched a hand-written kernel: {launches}")
+    if not all(np.isfinite([r["loss"] for r in rows] + [r["grad_norm"] for r in rows])):
+        raise AssertionError(f"non-finite loss or grad norm: {rows}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if not res["step0_rel_diff"] <= 1e-6:
+        raise AssertionError(f"step 0's loss {losses[0]} != loss_fn under no_grad {loss0}")
+    del opt_state
+    torch.cuda.empty_cache()
+    res["remat_check"] = remat_check(cfg)
+    res["card_vs_cpu"] = card_vs_cpu_step(TRAIN_ARCH)
+    emit(res)
+    return res, cfg, params
+
+
+# --------------------------------------------------------------------- rl_update
+def rank_segments(engine, world):
+    """The checkpoint engine's per-rank destination segments, found by their
+    names ("ckpt-r<node>.<gpu>") among the engine's segments, in rank order."""
+    by_name = {s.name: s for s in engine.segments.all_segments()}
+    return [by_name[f"ckpt-r{r // RL_GPUS}.{r % RL_GPUS}"] for r in range(world)]
+
+
+def rebuild_table(engine, table, world):
+    """The weights as the ranks hold them: each rank's segment read whole,
+    joined in rank order and cut at the tensors' offsets (sorted names, as
+    `register_checkpoint` lays them out), each in its table entry's dtype
+    and shape."""
+    segs = rank_segments(engine, world)
+    blob = np.concatenate([s.read(0, s.length) for s in segs])
+    out, off = {}, 0
+    for name in sorted(table):
+        a = table[name]
+        out[name] = np.frombuffer(blob, dtype=a.dtype, count=a.size, offset=off).reshape(a.shape)
+        off += a.nbytes
+    return out
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def phase_rl_update(cfg, params) -> dict:
+    """The trained checkpoint through TENT to 16 ranks (the reference
+    example's fabric: checkpoint_broadcast with rails (0, 1) and (0, 5)
+    degraded to 25 % throughout), round_robin then tent, every rank checked
+    byte for byte; the weights rebuilt from the ranks' segments equal the
+    trainer's bit for bit, and a bf16 flash prefill on them equals the same
+    prefill on the trainer's tensors. The main path (the refresh and the
+    prefill on the refreshed weights) launches flash attention once a
+    layer."""
+    table = flatten_state(params)
+    nbytes = sum(a.nbytes for a in table.values())
+    world = RL_NODES * RL_GPUS
+    spec = dataclasses.replace(
+        get("checkpoint_broadcast"), name="rl_weight_update",
+        faults=tuple(FaultEvent("degrade", node=node, nic=nic, at=0.0, until=1e9, factor=0.25)
+                     for node, nic in RL_DEGRADED), seed=3)
+    runner = ScenarioRunner(spec)
+    reset_launches()  # the main path: the refresh, then a prefill on its weights
+    policies = {}
+    for policy in ("round_robin", "tent"):
+        engine, _ = runner.build_engine(policy)
+        ce = CheckpointEngine(engine, nodes=RL_NODES, gpus_per_node=RL_GPUS)
+        _, register_ms = wall_ms(lambda: ce.register_checkpoint(table))
+        res, update_ms = wall_ms(lambda: ce.update(verify=True))
+        policies[policy] = {"virtual_s": res.seconds, "bytes": res.bytes, "ranks": res.ranks,
+                            "gb_per_s": res.aggregate_bandwidth / 1e9,
+                            "register_wall_ms": register_ms, "update_verify_wall_ms": update_ms,
+                            "slices_issued": engine.slices_issued}
+    ratio = policies["round_robin"]["virtual_s"] / policies["tent"]["virtual_s"]
+    want_ratio = spec.expectations.tent_vs_baseline
+    (refreshed, rebuild_ms) = wall_ms(
+        lambda: unflatten_like(params, rebuild_table(engine, table, world)))
+    differ = [n for (n, a), (_, b) in zip(named_leaves(refreshed), named_leaves(params))
+              if not _bits_equal(a, b)]
+    serve_cfg = cfg.with_(use_pallas=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (RL_PREFILL_BATCH, RL_PREFILL_LEN), generator=gen,
+                            device=DEV)
+    logits, prefill_ms = wall_ms(lambda: prefill_forward(serve_cfg, refreshed, prompts)[0])
+    main_launches = read_launches()
+    want = {**NO_LAUNCHES, "flash_attention": cfg.num_layers}
+    trainer_logits = prefill_forward(serve_cfg, params, prompts)[0]
+    del refreshed
+    step0 = init_params(cfg, torch.Generator(device=DEV).manual_seed(SEED), device=DEV)
+    step0_logits = prefill_forward(serve_cfg, step0, prompts)[0]
+    del step0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trained.npz")
+        _, save_ms = wall_ms(lambda: save_checkpoint(path, params))
+        loaded, load_ms = wall_ms(lambda: load_checkpoint(path, params))
+        npz_bytes = Path(path).stat().st_size
+    npz_differ = [n for (n, a), (_, b) in zip(named_leaves(loaded), named_leaves(params))
+                  if not _bits_equal(a, b)]
+    del loaded
+    res = {"phase": "rl_update", "arch": cfg.name, "checkpoint_bytes": nbytes,
+           "bytes_per_rank": -(-nbytes // world), "ranks": world,
+           "degraded_rails": [list(r) for r in RL_DEGRADED], "policies": policies,
+           "round_robin_over_tent_s": ratio, "tent_vs_baseline": want_ratio,
+           "rebuild_wall_ms": rebuild_ms, "leaves_differing": differ,
+           "prefill": {"batch": RL_PREFILL_BATCH, "prompt": RL_PREFILL_LEN, "dtype": "bfloat16",
+                       "wall_ms": prefill_ms, "equals_trainer_tensors": torch.equal(
+                           logits, trainer_logits),
+                       "differs_from_step0": not torch.equal(logits, step0_logits),
+                       "max_abs_diff_vs_step0": (logits - step0_logits).abs().max().item()},
+           "main_path_launches": main_launches,
+           "npz": {"bytes": npz_bytes, "save_ms": save_ms, "load_ms": load_ms,
+                   "leaves_differing": npz_differ}}
+    emit(res)
+    if nbytes != TRAIN_PARAMS * 2:
+        raise AssertionError(f"the checkpoint holds {nbytes} bytes, expected {TRAIN_PARAMS * 2}")
+    if ratio < want_ratio:
+        raise AssertionError(f"tent is slower than round_robin: {policies}")
+    if differ or npz_differ:
+        raise AssertionError(f"refreshed weights differ from the trainer's: {differ} {npz_differ}")
+    if not res["prefill"]["equals_trainer_tensors"] or not res["prefill"]["differs_from_step0"]:
+        raise AssertionError(f"the refreshed prefill is wrong: {res['prefill']}")
+    if not torch.isfinite(logits).all() or logits.shape != (RL_PREFILL_BATCH, cfg.vocab_size):
+        raise AssertionError("the refreshed prefill's logits are not finite or misshapen")
+    if main_launches != want:
+        raise AssertionError(f"the rl_update main path launched {main_launches}, expected {want}")
     return res
 
 
@@ -2172,6 +2482,12 @@ def main() -> int:
         phase_profile(*model)
         del serve, model
         torch.cuda.empty_cache()
+    _, train_cfg, trained = phase_train()
+    torch.cuda.empty_cache()
+    rl = phase_rl_update(train_cfg, trained)  # counts its main path only
+    launches["flash_attention"]["rl_update"] = rl["main_path_launches"]["flash_attention"]
+    del trained
+    torch.cuda.empty_cache()
     phase_moe_layer()
     torch.cuda.empty_cache()
     phase_hicache()

@@ -8,6 +8,7 @@
     python3 kernel_probe.py engine           # the engine's fp64 kernels and the padded shapes
     python3 kernel_probe.py drain            # the completion drain alone: checks, times, staging A/B
     python3 kernel_probe.py families         # the MoE and enc-dec serve phases, flash at their shapes
+    python3 kernel_probe.py training         # the train and rl_update phases alone
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -33,6 +34,9 @@ flap's 64 lanes with a lane a block and with two lanes a warp, in turns.
 alone: flash attention checked and timed at qwen3-moe's and seamless-m4t's
 prefill shapes, the qwen3-moe-235b-a22b (f32 depth 2, bf16 depth 4) and
 seamless-m4t-medium serve phases with their profiles, and `moe_layer`.
+`training` runs `chip_smoke.py`'s train phase (full-width qwen2-0.5b) and
+its rl_update phase (the trained checkpoint through TENT to 16 ranks and a
+flash prefill on it) alone.
 """
 from __future__ import annotations
 
@@ -312,6 +316,18 @@ def families() -> int:
     return 0
 
 
+def training() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    cs.phase_env()
+    _, cfg, params = cs.phase_train()
+    torch.cuda.empty_cache()
+    cs.phase_rl_update(cfg, params)
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "build":
@@ -326,5 +342,7 @@ if __name__ == "__main__":
         sys.exit(drain())
     if mode == "families":
         sys.exit(families())
+    if mode == "training":
+        sys.exit(training())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

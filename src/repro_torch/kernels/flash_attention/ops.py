@@ -6,12 +6,15 @@ tensors go to the Hopper kernel, which reads the (B, S, H, D) layout
 through strides and masks the ragged tail itself, so nothing is
 transposed here; a head dim other than 64 or 128 (any D up to 128, as the
 reference takes) is zero-padded by the kernel's binding. There is no
-fallback: if the kernel cannot be built or launched, this raises.
+fallback: if the kernel cannot be built or launched, this raises. Nor is
+there a backward pass: on either device, a call that autograd would have
+to differentiate raises (`refuse_autograd`), so the CPU and the card agree.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_autograd
 from . import kernel
 from .ref import flash_attention_ref
 
@@ -30,6 +33,7 @@ def flash_attention(
     reference; the kernel's tiles are fixed. bfloat16: blocks of 128 q rows
     (two warpgroups of 64) over kv tiles of 64 keys in a 3-stage ring.
     float32: blocks of 64 q rows over double-buffered kv tiles of 64 keys."""
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     return kernel.flash_attention_bshd(q, k, v, causal=causal, window=window)

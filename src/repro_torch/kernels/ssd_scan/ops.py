@@ -18,7 +18,9 @@ so this wrapper
   though each block redoes the work that depends only on B and C.
 The state size N stays limited to 128 (`kernel.MAX_STATE`) and the chunk
 to 128; every configuration has N <= 128. There is no fallback: if the
-kernel cannot be built or launched, this raises.
+kernel cannot be built or launched, this raises. Nor is there a backward
+pass: on either device, a call that autograd would have to differentiate
+raises (`refuse_autograd`), so the CPU and the card agree.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import refuse_autograd
 from . import kernel
 from .ref import ssd_scan_ref
 
@@ -41,6 +44,7 @@ def ssd_chunked(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P), final_state (B,H,P,N)), both in x's dtype as
     the reference's wrapper returns them."""
+    refuse_autograd("ssd_chunked", x, a, B_in, C_in, initial_state)
     s = x.shape[1]
     chunk = min(chunk, max(8, 1 << (s - 1).bit_length()))
     if x.device.type == "cpu":

@@ -6,6 +6,7 @@ from .model import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     param_shapes,
     prefill,
     prefill_forward,
@@ -13,5 +14,5 @@ from .model import (
 
 __all__ = [
     "DecoderLM", "decode_step", "encode", "forward", "init_cache", "init_params",
-    "param_shapes", "params_from_numpy", "prefill", "prefill_forward",
+    "loss_fn", "param_shapes", "params_from_numpy", "prefill", "prefill_forward",
 ]

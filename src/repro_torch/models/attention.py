@@ -9,9 +9,11 @@ the reference's do.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -108,8 +110,10 @@ def attend_chunked(
     chunk: int = CHUNK_Q,
 ) -> torch.Tensor:
     """q-chunked attention: scores materialize only per (chunk x span)
-    block. A plain loop over chunks (the reference's scan without its
-    activation checkpointing; the port has no backward pass yet)."""
+    block, and under autograd each chunk is checkpointed (recomputed in the
+    backward pass, as the reference's `jax.checkpoint` block is), so peak
+    memory is O(B*H*chunk*S) in training too. A plain loop over chunks in
+    place of the reference's scan."""
     B, S, H, Hd = q.shape
     if S % chunk:
         raise ValueError(f"seq {S} % chunk {chunk}")
@@ -119,18 +123,16 @@ def attend_chunked(
     if window > 0:
         span = min(S, chunk + window)
         span = ((span + chunk - 1) // chunk) * chunk
-    out = []
-    for offset in range(0, S, chunk):
-        q_blk = q[:, offset:offset + chunk]
+    def block(q_blk, offset):
         if span < S:
             start = min(max(offset + chunk - span, 0), S - span)
-            out.append(attend_full(
-                q_blk, k[:, start:start + span], v[:, start:start + span],
-                causal=causal, window=window, q_offset=offset - start))
-        else:
-            out.append(attend_full(q_blk, k, v, causal=causal, window=window,
-                                   q_offset=offset))
-    return torch.cat(out, dim=1)
+            return attend_full(q_blk, k[:, start:start + span], v[:, start:start + span],
+                               causal=causal, window=window, q_offset=offset - start)
+        return attend_full(q_blk, k, v, causal=causal, window=window, q_offset=offset)
+
+    if torch.is_grad_enabled():
+        block = functools.partial(checkpoint, block, use_reentrant=False)
+    return torch.cat([block(q[:, o:o + chunk], o) for o in range(0, S, chunk)], dim=1)
 
 
 def prefill_attention(

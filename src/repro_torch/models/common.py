@@ -1,4 +1,4 @@
-"""Shared model components: norms, RoPE, initializers, SwiGLU.
+"""Shared model components: norms, RoPE, initializers, cross-entropy, SwiGLU.
 
 Torch counterparts of `repro.models.common`, with the same cast order so
 that the two packages compute the same thing.
@@ -46,6 +46,17 @@ def dense_init(gen: torch.Generator, fan_in: int, shape: tuple,
 def embed_init(gen: torch.Generator, shape: tuple, dtype=torch.bfloat16) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (w * 0.02).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean token-level CE in fp32 over the targets that are not
+    `ignore_id`. logits [..., V], targets [...] int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long().clamp(min=0)[..., None])[..., 0]
+    mask = (targets != ignore_id).float()
+    return torch.sum((logz - gold) * mask) / mask.sum().clamp(min=1.0)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

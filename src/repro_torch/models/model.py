@@ -17,6 +17,7 @@ Entry points:
 
   param_shapes / init_params      parameters
   forward                         causal LM forward (+ MoE aux losses)
+  loss_fn                         training loss: token CE (+ MoE aux terms)
   prefill_forward                 serving prefill, returns the decode cache
   init_cache / decode_step        decode caches and the single-token step
   prefill                         replay prefill through decode_step
@@ -30,15 +31,18 @@ is `moe_ffn_sorted` without a mesh.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
 from .attention import attend_cached, attend_cross, attend_full, cache_update, prefill_attention
-from .common import apply_rope, dense_init, embed_init, rms_norm, rope_angles, swiglu
+from .common import (apply_rope, cross_entropy, dense_init, embed_init, rms_norm,
+                     rope_angles, swiglu)
 from .moe import moe_ffn_sorted, moe_param_shapes
 from .ssm import mamba2_mixer, mamba2_mixer_step, mixer_param_shapes
 
@@ -154,8 +158,10 @@ def _frozen(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class DecoderLM(nn.Module):
-    """The parameters as an `nn.Module` (frozen: the port has no training
-    yet). `tree()` hands the functional entry points their dict."""
+    """The parameters as an `nn.Module`, frozen. `tree()` hands the
+    functional entry points their dict. Training works on that functional
+    tree (`repro_torch.training`), as the reference's does, so the module
+    never holds a second, trainable copy."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
@@ -319,25 +325,52 @@ def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
-            enc_frames: Optional[torch.Tensor] = None
+            enc_frames: Optional[torch.Tensor] = None, remat: Optional[bool] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal forward. tokens: (B, S) int -> logits (B, S, V) fp32 + aux:
     the MoE aux losses summed over layers and divided by max(L, 1) (zero
-    for families without experts). enc_frames (B, S_enc, D) for enc-dec."""
+    for families without experts). enc_frames (B, S_enc, D) for enc-dec.
+
+    `remat` (None: `cfg.remat == "full"`) checkpoints each decoder layer
+    under autograd, in place of the reference's `jax.checkpoint`: the
+    backward pass recomputes the layer from its input, and its aux losses
+    come out of the checkpoint as outputs. The stacked layer leaves are
+    unbound once, so each leaf's gradient is one stack of L slices."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)
     enc_out = _encoder_output(cfg, params, enc_frames)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
-    lp = params["layers"]
+    layer = functools.partial(_decoder_layer, cfg)
+    if (cfg.remat == "full" if remat is None else remat) and torch.is_grad_enabled():
+        layer = functools.partial(checkpoint, layer, use_reentrant=False)
+    lp = {k: v.unbind(0) for k, v in params["layers"].items()}
     for i in range(cfg.num_layers):
-        x, aux, _ = _decoder_layer(cfg, _layer(lp, i), x, positions, enc_out)
+        x, aux, _ = layer({k: v[i] for k, v in lp.items()}, x, positions, enc_out)
         if aux:
             lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     denom = max(cfg.num_layers, 1)
     return _logits(params, x), {"lb_loss": lb / denom, "z_loss": zl / denom}
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss on `batch` ({"tokens", "targets"} (B, S) int, and
+    "enc_frames" for enc-dec): mean token CE, plus 0.01 lb_loss + 0.001
+    z_loss in the MoE family. Returns (loss, {"ce", "lb_loss", "z_loss"}).
+    Raises ValueError for `cfg.use_pallas`: the hand-written kernels have
+    no backward pass, as the reference's Pallas kernels have none."""
+    if cfg.use_pallas:
+        raise ValueError(f"{cfg.name}: training takes the plain path (use_pallas=False); "
+                         "the hand-written kernels have no backward pass")
+    logits, aux = forward(cfg, params, batch["tokens"], enc_frames=batch.get("enc_frames"))
+    ce = cross_entropy(logits, batch["targets"])
+    loss = ce
+    if cfg.num_experts > 0:
+        loss = loss + 0.01 * aux["lb_loss"] + 0.001 * aux["z_loss"]
+    return loss, {"ce": ce, **aux}
 
 
 def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

@@ -43,6 +43,11 @@ ENGINE_MODULES = [
     "repro_torch.kernels.spray_sim.ref", "repro_torch.scenarios.sweep",
     "repro_torch.obs.recorder", "repro_torch.obs.trace", "repro_torch.obs.explain",
 ]
+# the training path: AdamW, the token stream, checkpoints and the loop
+TRAINING_MODULES = [
+    "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.data",
+    "repro_torch.training.checkpoint", "repro_torch.training.train_loop",
+]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -52,7 +57,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     assert seen["n"] >= 30  # every module of the package was imported
-    assert set(ENGINE_MODULES) <= set(seen["mods"])
+    assert set(ENGINE_MODULES + TRAINING_MODULES) <= set(seen["mods"])
     assert seen["bad"] == [], f"repro_torch pulled in: {seen['bad']}"
 
 
