@@ -45,6 +45,16 @@ Phases, one JSON line each on stdout:
            (layer by layer) no further than 1.5x the plain bf16 prefill is.
   profile  device time by op (torch.profiler) over one prefill and eight
            decode steps of each serve phase, and the device's busy share.
+  sharded  right after the qwen3-moe f32 serve phase, its model (full
+           width, depth 2, its own parameters wrapped as DTensors of the
+           sharding rules' placements) under `activation_sharding` on the
+           host mesh (1, 1) over a one-rank NCCL group: the sharded prefill
+           (flash on local shards under `local_map`, 2 launches;
+           `moe_ffn_ep` expert-parallel in both layers) against the
+           unsharded one within 2e-3, 4 decode steps from a copy of its
+           cache likewise, `moe_ffn_ep` alone at T = 4096 and 4 against
+           `moe_ffn_sorted` within 1e-4; the collectives by kind; prefill,
+           decode-step and MoE-FFN ms with and without the mesh.
   train    the training path (`repro_torch.training`) at full width and
            depth: qwen2-0.5b's 494,032,768 params in bf16 with fp32
            moments and per-layer remat, B=4 x 1024 tokens from
@@ -123,6 +133,14 @@ Phases, one JSON line each on stdout:
            first pass's; a 4096-seed flap_storm sweep timed beside the
            plain sim on the card, and its kernel alone.
 
+  dryrun   `python -m repro_torch.launch.dryrun --arch qwen3-moe-235b-a22b`
+           for each of 4 input shapes x the 16x16 and 2x16x16 meshes, one
+           subprocess a case (one process holds one default group), all 8
+           started together: meta tensors under fake groups of 256 and 512
+           ranks, host work only; each must exit 0 and every case's bytes
+           a device must equal the reference's; its FLOPs, collective
+           bytes, roofline terms and seconds are printed.
+
 Then a {"kernels": [...]} summary and, last, {"ok": true, "device": ...}.
 Any failed check raises and the script exits non-zero. Without a card it
 exits non-zero before printing anything. It needs one card.
@@ -134,6 +152,7 @@ import dataclasses
 import functools
 import json
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -149,6 +168,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import EngineConfig, Fabric, FabricSpec, TelemetryStore, TentEngine  # noqa: E402
@@ -177,7 +197,8 @@ from repro_torch.kernels.spray_sim import kernel as sim_kernel  # noqa: E402
 from repro_torch.kernels.spray_sim import spray_sim, spray_sim_ref  # noqa: E402
 from repro_torch.kernels.tent_core import kernel as tc_kernel  # noqa: E402
 from repro_torch.kernels.tent_core import ops as tc_ops  # noqa: E402
-from repro_torch.models import init_params, loss_fn, prefill_forward  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models import decode_step, init_params, loss_fn, prefill_forward  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
 from repro_torch.obs import FlightRecorder  # noqa: E402
@@ -185,6 +206,8 @@ from repro_torch.obs import events as OBS  # noqa: E402
 from repro_torch.obs.explain import replay_wave  # noqa: E402
 from repro_torch.scenarios import FaultEvent, MonteCarloSweep, ScenarioRunner, get, names  # noqa: E402
 from repro_torch.scenarios.sweep import SWEEP_POLICIES, compile_spray_program  # noqa: E402
+from repro_torch.sharding.ctx import activation_sharding  # noqa: E402
+from repro_torch.sharding.rules import batch_spec, param_shardings, placements  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     CheckpointEngine,
     DisaggregatedServer,
@@ -268,6 +291,16 @@ SERVES = [("qwen2-0.5b", 4, 1024, 32, torch.float32, None),
 # them (src/repro/launch/dryrun.py:151)
 ENC_FRAMES_DIV = 4
 MOE_ARCH, MOE_TOKENS = "qwen3-moe-235b-a22b", (4096, 4)  # moe_layer: prefill and decode T
+# sharded: the qwen3-moe f32 serve phase's model under the host mesh, its
+# decode steps, and moe_ffn_ep alone at these T (capacities 320 and 1)
+SHARDED_ARCH, SHARDED_DECODE, SHARDED_MOE_TOL = "qwen3-moe-235b-a22b", 4, 1e-4
+# dryrun: the reference's `_analytic_bytes` per device for qwen3-moe-235b-a22b
+# (src/repro/launch/dryrun.py:256 on the 16x16 and 2x16x16 meshes)
+DRYRUN_ARCH, DRYRUN_TIMEOUT_S = "qwen3-moe-235b-a22b", 600
+DRYRUN_BYTES = {("train_4k", "16x16"): 9_219_932_164, ("train_4k", "2x16x16"): 9_219_932_164,
+                ("prefill_32k", "16x16"): 1_843_986_432, ("prefill_32k", "2x16x16"): 1_843_986_432,
+                ("decode_32k", "16x16"): 4_998_103_040, ("decode_32k", "2x16x16"): 3_421_044_736,
+                ("long_500k", "16x16"): 1_942_552_576, ("long_500k", "2x16x16"): 1_942_552_576}
 # a bf16 kernel prefill's logits may lie at most this many times as far from
 # an f32 evaluation of the same bf16 weights as the plain bf16 prefill's do
 BF16_GATE = 1.5
@@ -1199,6 +1232,208 @@ def phase_profile(cfg, params, prompts, enc) -> dict:
     res = {"phase": "profile", "arch": cfg.name, "num_layers": cfg.num_layers,
            "dtype": str(params["embed"].dtype).removeprefix("torch."), "prefill": _profiled(prefill),
            "decode_8_steps": _profiled(decode)}
+    emit(res)
+    return res
+
+
+# ----------------------------------------------------------------------- sharded
+def _distributed(tree, tree_placements, mesh):
+    """Each tensor of `tree` wrapped as a DTensor of its placements, its
+    storage shared: on the one-card (1, 1) mesh the local shard is all of it."""
+    if isinstance(tree, dict):
+        return {k: _distributed(v, tree_placements[k], mesh) for k, v in tree.items()}
+    return DTensor.from_local(tree, mesh, tree_placements, run_check=False)
+
+
+def phase_sharded(cfg, params, prompts) -> dict:
+    """The qwen3-moe f32 serve phase's model (full width, depth 2, its own
+    parameters wrapped as DTensors of `param_shardings`' placements, not
+    copied) under `activation_sharding` on the host mesh, over an NCCL group
+    of this one card: the sharded prefill (flash on local shards under
+    `local_map`, `moe_ffn_ep` in both layers) and 4 decode steps from a copy
+    of its cache against the unsharded ones within 2e-3; `moe_ffn_ep` alone
+    at T = 4096 and 4 against `moe_ffn_sorted` within 1e-4 (the reference's
+    pin, tests/test_models.py:230-233); the NCCL collectives by kind
+    (CommDebugMode); prefill, decode-step and MoE-FFN ms (CUDA events) with
+    and without the mesh. Returns the main path's launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    B, S = prompts.shape
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh()
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        dparams = _distributed(params, param_shardings(cfg, mesh, params), mesh)
+        tok_pl = placements(batch_spec(mesh) + (None,), mesh)
+        dprompts = DTensor.from_local(prompts, mesh, tok_pl, run_check=False)
+        with torch.no_grad():
+            want_logits, want_cache = prefill_forward(cfg, params, prompts)
+            torch.cuda.synchronize()
+            # the main path: the sharded prefill and its decode steps
+            reset_launches()
+            moe_mod.ep_calls = 0
+            with CommDebugMode() as comm, activation_sharding(mesh):
+                logits, cache = prefill_forward(cfg, dparams, dprompts)
+                prefill_launches, ep_calls = read_launches(), moe_mod.ep_calls
+                prefill_comm = {str(k): v for k, v in comm.get_comm_counts().items()}
+                dcache = {n: DTensor.from_local(t, mesh, cache[n].placements, run_check=False)
+                          for n, t in decode_cache(cfg, {n: c.to_local() for n, c in cache.items()},
+                                                   S + SHARDED_DECODE).items()}
+                tok = torch.argmax(want_logits, -1)[:, None].to(torch.int32)
+                dtok = DTensor.from_local(tok, mesh, tok_pl, run_check=False)
+                steps = []
+                for i in range(SHARDED_DECODE):
+                    out, dcache = decode_step(cfg, dparams, dcache, dtok, S + i)
+                    steps.append(out)
+                    dtok = torch.argmax(out, -1)[:, None].to(torch.int32)
+            main_launches = read_launches()
+            all_comm = {str(k): v for k, v in comm.get_comm_counts().items()}
+            cache_plain = decode_cache(cfg, want_cache, S + SHARDED_DECODE)
+            tok_plain, decode_errs = tok, []
+            for i, out in enumerate(steps):
+                want, cache_plain = decode_step(cfg, params, cache_plain, tok_plain, S + i)
+                decode_errs.append(_close(f"sharded decode step {i}", out.full_tensor(), want))
+                tok_plain = torch.argmax(want, -1)[:, None].to(torch.int32)
+            decode_cache_errs = {n: _close(f"sharded decode cache[{n}]", dcache[n].full_tensor(),
+                                           cache_plain[n]) for n in cache_plain}
+        if ep_calls != cfg.num_layers:
+            raise AssertionError(f"moe_ffn_ep ran expert-parallel {ep_calls} times in a "
+                                 f"{cfg.num_layers}-layer sharded prefill")
+        want_launches = expected_launches(cfg)
+        if prefill_launches != want_launches or main_launches != want_launches:
+            raise AssertionError(f"the sharded prefill launched {prefill_launches} (with decode "
+                                 f"{main_launches}), expected {want_launches}")
+        prefill_errs = {"logits": _close("sharded logits", logits.full_tensor(), want_logits),
+                        **{n: _close(f"sharded cache[{n}]", cache[n].full_tensor(), want_cache[n])
+                           for n in want_cache}}
+        bit_equal = {"logits": torch.equal(logits.full_tensor(), want_logits),
+                     **{n: torch.equal(cache[n].full_tensor(), want_cache[n]) for n in want_cache}}
+
+        # moe_ffn_ep alone on layer 0's weights against moe_ffn_sorted
+        lp0 = {k: dparams["layers"][k][0] for k in ("router", "w_gate", "w_up", "w_down")}
+        lp0_plain = {k: params["layers"][k][0] for k in lp0}
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        moe = {}
+        for T in MOE_TOKENS:
+            x = torch.randn((T, cfg.d_model), generator=gen, device="cuda")
+            dx = DTensor.from_local(x, mesh, placements(batch_spec(mesh) + (None,), mesh),
+                                    run_check=False)
+            with torch.no_grad():
+                moe_mod.ep_calls = 0
+                with activation_sharding(mesh):
+                    got, got_aux = moe_mod.moe_ffn_ep(cfg, lp0, dx)
+                want, want_aux = moe_mod.moe_ffn_sorted(cfg, lp0_plain, x)
+            err = _close(f"moe_ffn_ep T={T}", got.full_tensor(), want, SHARDED_MOE_TOL)
+            lb_err = abs(got_aux["lb_loss"].full_tensor().item() - want_aux["lb_loss"].item())
+            if moe_mod.ep_calls != 1 or lb_err > SHARDED_MOE_TOL:
+                raise AssertionError(f"moe_ffn_ep T={T}: ep calls {moe_mod.ep_calls}, "
+                                     f"lb_loss off by {lb_err}")
+
+            def sharded_ffn():
+                with activation_sharding(mesh):
+                    return moe_mod.moe_ffn_ep(cfg, lp0, dx)
+
+            iters = 5 if T > 64 else 20
+            with torch.no_grad():
+                moe[f"T{T}"] = {"capacity": moe_mod.capacity(cfg, T), "max_abs_err": err,
+                                "bit_equal": torch.equal(got.full_tensor(), want),
+                                "lb_loss_abs_err": lb_err,
+                                "dropped_sorted": int(want_aux["dropped"]),
+                                "sharded_ms": cuda_ms(sharded_ffn, iters),
+                                "plain_ms": cuda_ms(lambda: moe_mod.moe_ffn_sorted(
+                                    cfg, lp0_plain, x), iters)}
+            del x, dx, got, want
+
+        def sharded_prefill():
+            with activation_sharding(mesh):
+                return prefill_forward(cfg, dparams, dprompts)
+
+        def sharded_decode():
+            with activation_sharding(mesh):
+                return decode_step(cfg, dparams, dcache, dtok, S)
+
+        with torch.no_grad():
+            timing = {"prefill_sharded_ms": cuda_ms(sharded_prefill, 5),
+                      "prefill_plain_ms": cuda_ms(lambda: prefill_forward(cfg, params, prompts), 5),
+                      "decode_step_sharded_ms": cuda_ms(sharded_decode, 10),
+                      "decode_step_plain_ms": cuda_ms(lambda: decode_step(
+                          cfg, params, cache_plain, tok_plain, S), 10)}
+        res = {"phase": "sharded", "arch": cfg.name, "mesh": sizes, "batch": B, "prompt": S,
+               "reduced": {"num_layers": [get_config(SHARDED_ARCH).num_layers, cfg.num_layers]},
+               "main_path_launches": main_launches, "moe_ffn_ep_engaged": ep_calls,
+               "collectives_prefill": prefill_comm, "collectives_prefill_and_decode": all_comm,
+               "prefill_max_abs_err": prefill_errs, "prefill_bit_equal": bit_equal,
+               "decode_steps": SHARDED_DECODE, "decode_logits_max_abs_err": decode_errs,
+               "decode_cache_max_abs_err": decode_cache_errs, "moe_ffn_ep": moe,
+               "timing": timing}
+        emit(res)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------------ dryrun
+def phase_dryrun() -> dict:
+    """The port's multi-pod dry run for qwen3-moe-235b-a22b on both
+    production meshes (4 shapes x 2 meshes, meta tensors under fake groups
+    of 256 and 512 ranks): one subprocess a case (a process holds one
+    default group), all started together, after the card's phases. Each
+    must exit 0, and each case's analytic bytes a device must equal the
+    reference's."""
+    cases = [(shape, mp) for shape in dict.fromkeys(k[0] for k in DRYRUN_BYTES)
+             for mp in (False, True)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for n, (shape, mp) in enumerate(cases):
+                log = open(Path(tmp) / f"{n}.log", "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+                     "--shape", shape, *(["--multi-pod"] if mp else []),
+                     "--out", str(Path(tmp) / f"{n}.jsonl")],
+                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+            for proc, _ in procs:
+                proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        wall = time.perf_counter() - t0
+        failed = [(cases[n], Path(log.name).read_text()[-3000:])
+                  for n, (proc, log) in enumerate(procs) if proc.returncode != 0]
+        if failed:
+            raise AssertionError(f"the dry run failed in {[c for c, _ in failed]}:\n{failed[0][1]}")
+        records = [json.loads(line) for n in range(len(cases))
+                   for line in (Path(tmp) / f"{n}.jsonl").read_text().splitlines()]
+        text = "".join(Path(log.name).read_text() for _, log in procs)
+    rows = []
+    for rec in records:
+        want = DRYRUN_BYTES[(rec["shape"], rec["mesh"])]
+        if rec["analytic_bytes_per_device"] != want:
+            raise AssertionError(f"dry run {rec['shape']} {rec['mesh']}: "
+                                 f"{rec['analytic_bytes_per_device']} bytes a device, "
+                                 f"the reference's {want}")
+        r = rec["roofline"]
+        rows.append({"shape": rec["shape"], "mesh": rec["mesh"],
+                     "analytic_bytes_per_device": rec["analytic_bytes_per_device"],
+                     "reference_bytes_per_device": want, "fits_80GB": rec["fits_80GB"],
+                     "flops": rec["flops"], "bytes": rec["bytes"],
+                     "collective_bytes": rec["collective_bytes"],
+                     "collectives": rec["collectives"], "loops": rec["loops"],
+                     "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                     "collective_s": r["collective_s"], "bottleneck": r["bottleneck"],
+                     "useful_ratio": rec["useful_ratio"], "seconds": rec["seconds"]})
+    if len(rows) != len(DRYRUN_BYTES):
+        raise AssertionError(f"the dry run wrote {len(rows)} records, expected "
+                             f"{len(DRYRUN_BYTES)}:\n{text[-3000:]}")
+    res = {"phase": "dryrun", "arch": DRYRUN_ARCH, "wall_s": wall,
+           "cases_s": sum(r["seconds"] for r in rows), "cases": rows}
     emit(res)
     return res
 
@@ -2480,6 +2715,10 @@ def main() -> int:
             if n:
                 launches[name][path] = n
         phase_profile(*model)
+        if arch == SHARDED_ARCH and dtype == torch.float32:
+            sharded = phase_sharded(*model[:3])  # counts its main path only
+            launches["flash_attention"][f"{arch}/sharded"] = (
+                sharded["main_path_launches"]["flash_attention"])
         del serve, model
         torch.cuda.empty_cache()
     _, train_cfg, trained = phase_train()
@@ -2501,6 +2740,7 @@ def main() -> int:
         mc_state = phase_mc_sweep(jobs)
     jit = finish_jit_core(jit_checks)
     mc = finish_mc_sweep(mc_state)
+    phase_dryrun()
     for name in ("tent_choose_wave_padded", "tent_on_complete_many"):
         launches[name]["engage_transfer"] = jit["main_path_launches"][name]
     launches["spray_sim"]["mc_sweep"] = mc["main_path_launches"]["spray_sim"]

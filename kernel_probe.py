@@ -9,6 +9,7 @@
     python3 kernel_probe.py drain            # the completion drain alone: checks, times, staging A/B
     python3 kernel_probe.py families         # the MoE and enc-dec serve phases, flash at their shapes
     python3 kernel_probe.py training         # the train and rl_update phases alone
+    python3 kernel_probe.py sharded          # qwen3-moe f32 served, then the sharded and dryrun phases
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -36,7 +37,9 @@ prefill shapes, the qwen3-moe-235b-a22b (f32 depth 2, bf16 depth 4) and
 seamless-m4t-medium serve phases with their profiles, and `moe_layer`.
 `training` runs `chip_smoke.py`'s train phase (full-width qwen2-0.5b) and
 its rl_update phase (the trained checkpoint through TENT to 16 ranks and a
-flash prefill on it) alone.
+flash prefill on it) alone. `sharded` serves qwen3-moe-235b-a22b in f32 at
+depth 2 (`chip_smoke.py`'s serve phase), then runs its sharded phase on
+that model under the host mesh and the dryrun phase.
 """
 from __future__ import annotations
 
@@ -328,6 +331,20 @@ def training() -> int:
     return 0
 
 
+def sharded() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    cs.phase_env()
+    entry = next(e for e in cs.SERVES if e[0] == cs.SHARDED_ARCH and e[4] == torch.float32)
+    _, model = cs.phase_serve(*entry)
+    cs.phase_sharded(*model[:3])
+    del model
+    cs.phase_dryrun()
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "build":
@@ -344,5 +361,7 @@ if __name__ == "__main__":
         sys.exit(families())
     if mode == "training":
         sys.exit(training())
+    if mode == "sharded":
+        sys.exit(sharded())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

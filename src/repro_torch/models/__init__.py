@@ -1,6 +1,8 @@
 from .convert import params_from_numpy
 from .model import (
     DecoderLM,
+    abstract_params,
+    cache_shapes,
     decode_step,
     encode,
     forward,
@@ -13,6 +15,7 @@ from .model import (
 )
 
 __all__ = [
-    "DecoderLM", "decode_step", "encode", "forward", "init_cache", "init_params",
-    "loss_fn", "param_shapes", "params_from_numpy", "prefill", "prefill_forward",
+    "DecoderLM", "abstract_params", "cache_shapes", "decode_step", "encode", "forward",
+    "init_cache", "init_params", "loss_fn", "param_shapes", "params_from_numpy", "prefill",
+    "prefill_forward",
 ]

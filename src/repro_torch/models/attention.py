@@ -6,6 +6,12 @@ flash-attention kernel (the Hopper kernel on CUDA tensors, its plain
 version on CPU tensors). The enc-dec family's encoder attends without a
 mask and its decoder across to the encoder through the plain paths, as
 the reference's do.
+
+The reference's `constrain` calls stand at their counterparts: the identity
+without a sharding context, DTensor redistributions under one
+(`repro_torch.sharding.ctx`). Under a mesh the flash-attention kernel runs
+on each rank's local shard through `local_map`, heads over `model`, and a
+decode step writes its K/V into the rank's own shard of the cache.
 """
 from __future__ import annotations
 
@@ -13,7 +19,14 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
+
+from ..sharding.ctx import _cur, constrain, hold_layout, rule, split_dim
+from ..sharding.rules import placements
 
 NEG_INF = -1e30
 
@@ -23,9 +36,9 @@ CHUNK_Q = 512
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """q: [B,S,H,Hd], k: [B,T,K,Hd] -> scores [B,K,G,S,T] with H = K*G."""
-    B, S, H, Hd = q.shape
+    H, Hd = q.shape[2], q.shape[3]
     K = k.shape[2]
-    qg = q.reshape(B, S, K, H // K, Hd)
+    qg = split_dim(q, 2, K, H // K)
     return torch.einsum("bskgd,btkd->bkgst", qg, k) / (Hd ** 0.5)
 
 
@@ -37,11 +50,13 @@ def _gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _expand_kv(k: torch.Tensor, G: int) -> torch.Tensor:
-    """(B, T, K, Hd) -> (B, T, K*G, Hd): plain-MHA form."""
+    """(B, T, K, Hd) -> (B, T, K*G, Hd): plain-MHA form. A DTensor keeps
+    its kv-head layout for its gradient, which the merged heads' backward
+    view needs."""
     if G == 1:
         return k
     B, T, K, Hd = k.shape
-    return k[:, :, :, None, :].expand(B, T, K, G, Hd).reshape(B, T, K * G, Hd)
+    return hold_layout(k[:, :, :, None, :].expand(B, T, K, G, Hd).reshape(B, T, K * G, Hd))
 
 
 def attend_full(
@@ -55,13 +70,17 @@ def attend_full(
 ) -> torch.Tensor:
     """Self-attention over equal-length q/k (prefill). window > 0 applies
     sliding-window masking (each query sees the last `window` keys,
-    inclusive)."""
+    inclusive). DTensors under a sharding context run on local shards."""
+    if isinstance(q, DTensor) and _cur() is not None:
+        return _local_heads(functools.partial(attend_full, causal=causal, window=window,
+                                              q_offset=q_offset), q, k, v)
     B, S, H, Hd = q.shape
     T = k.shape[1]
     G = H // k.shape[2]
-    k = _expand_kv(k, G)
-    v = _expand_kv(v, G)
+    k = constrain(_expand_kv(k, G), "bshd")
+    v = constrain(_expand_kv(v, G), "bshd")
     scores = torch.einsum("bshd,bthd->bhst", q, k).float() / (Hd ** 0.5)
+    scores = constrain(scores, "bhst")
     qpos = torch.arange(S, device=q.device) + q_offset
     kpos = torch.arange(T, device=q.device)
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -70,7 +89,7 @@ def attend_full(
     if window > 0:
         mask &= kpos[None, :] > qpos[:, None] - window
     scores = torch.where(mask[None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = constrain(torch.softmax(scores, dim=-1).to(q.dtype), "bhst")
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
@@ -81,7 +100,10 @@ def attend_cached(
     valid: torch.Tensor,
 ) -> torch.Tensor:
     """Single-step decode: q [B,1,H,Hd] against a (possibly ring-buffer)
-    KV cache [B,W,K,Hd]; `valid` [W] or [B,W] marks live slots."""
+    KV cache [B,W,K,Hd]; `valid` [W] or [B,W] marks live slots. A DTensor
+    cache under a sharding context is read where it lies (`_local_kv`)."""
+    if isinstance(k_cache, DTensor) and _cur() is not None:
+        return _local_kv(q, k_cache, v_cache, valid)
     scores = _gqa_scores(q, k_cache).float()  # [B,K,G,1,W]
     if valid.ndim == 1:
         vmask = valid[None, None, None, None, :]
@@ -94,7 +116,10 @@ def attend_cached(
 
 def attend_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bidirectional cross-attention (decoder -> encoder memory): q
-    [B,S,H,Hd] over k/v [B,S_enc,K,Hd], no mask."""
+    [B,S,H,Hd] over k/v [B,S_enc,K,Hd], no mask. DTensor k/v under a
+    sharding context are read where they lie (`_local_kv`)."""
+    if isinstance(k, DTensor) and _cur() is not None:
+        return _local_kv(q, k, v, None)
     scores = _gqa_scores(q, k).float()
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _gqa_combine(probs, v)
@@ -124,11 +149,14 @@ def attend_chunked(
         span = min(S, chunk + window)
         span = ((span + chunk - 1) // chunk) * chunk
     def block(q_blk, offset):
+        q_blk = constrain(q_blk, "bshd")
         if span < S:
             start = min(max(offset + chunk - span, 0), S - span)
-            return attend_full(q_blk, k[:, start:start + span], v[:, start:start + span],
-                               causal=causal, window=window, q_offset=offset - start)
-        return attend_full(q_blk, k, v, causal=causal, window=window, q_offset=offset)
+            out = attend_full(q_blk, k[:, start:start + span], v[:, start:start + span],
+                              causal=causal, window=window, q_offset=offset - start)
+        else:
+            out = attend_full(q_blk, k, v, causal=causal, window=window, q_offset=offset)
+        return constrain(out, "bshd")
 
     if torch.is_grad_enabled():
         block = functools.partial(checkpoint, block, use_reentrant=False)
@@ -140,7 +168,11 @@ def prefill_attention(
     use_pallas: bool = False,
 ) -> torch.Tensor:
     """`use_pallas` keeps the reference's config name: it selects the
-    flash-attention kernel."""
+    flash-attention kernel. On DTensors under a sharding context either path
+    runs on each rank's local shards (`_local_heads`)."""
+    if isinstance(q, DTensor) and _cur() is not None:
+        return _local_heads(functools.partial(prefill_attention, window=window,
+                                              use_pallas=use_pallas), q, k, v)
     if use_pallas:
         from ..kernels.flash_attention.ops import flash_attention
 
@@ -149,6 +181,88 @@ def prefill_attention(
     if S > CHUNKED_THRESHOLD and S % CHUNK_Q == 0:
         return attend_chunked(q, k, v, causal=True, window=window)
     return attend_full(q, k, v, causal=True, window=window)
+
+
+def _local_heads(attend, q, k, v):
+    """`attend` (q, k, v) -> out on each rank's shard under `local_map`:
+    batch over the batch axes and heads over `model` (when H divides it),
+    the "bshd" layout of every operand and of the output (so the scores are
+    in the reference's "bhst" layout). Batch rows and heads are independent,
+    so this is exact; the kernel sees local tensors, never DTensors, and
+    DTensor propagates no sharding through the attention's own ops. When H
+    divides `model` and K does not, K/V are first expanded to H heads
+    (plain-MHA form, as `attend_full` does), so each rank holds the kv heads
+    its query heads read."""
+    ctx = _cur()
+    mesh, m = ctx["mesh"], ctx["model"]
+    H, K = q.shape[2], k.shape[2]
+    if m is not None and H % ctx["sizes"][m] == 0 and K % ctx["sizes"][m] != 0:
+        k, v = _expand_kv(k, H // K), _expand_kv(v, H // K)
+    pl = placements(rule("bshd", tuple(q.shape), ctx), mesh)
+    fn = local_map(attend, out_placements=list(pl), in_placements=(pl, pl, pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v)
+
+
+def _local_kv(q, k, v, valid):
+    """`attend_cached` (or, with `valid` None, `attend_cross`) on the local
+    shards of DTensor K/V (B, W, K, Hd), in their own layout: q's batch and
+    heads follow the cache's batch and kv heads. Over a length W sharded
+    across ranks, each rank scores its slots and the softmax is taken
+    across the shards: the max and the sum of exponentials are all-reduced
+    over the ranks that split W, each rank's probabilities weigh its own V,
+    and the partial outputs are summed (DTensor's all-reduce)."""
+    mesh = k.device_mesh
+    # the K/V layout kept: batch, length or kv heads split; anything else
+    # (a head-dim split, a partial sum) is gathered first
+    cpl = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate() for p in k.placements)
+    q_pl = tuple(Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2) else Replicate()
+                 for p in cpl)
+    w_dims = [i for i, p in enumerate(cpl) if p.is_shard(1)]
+    if not w_dims:
+        attend = attend_cross if valid is None else functools.partial(
+            attend_cached, valid=valid)
+        return local_map(attend, out_placements=list(q_pl), in_placements=(q_pl, cpl, cpl),
+                         device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    if valid is not None and valid.ndim != 1:
+        raise ValueError("a cache sharded over its length takes a valid mask [W]")
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh, cpl)
+    groups = [(mesh, i) for i in w_dims]
+
+    def body(q, k, v):
+        scores = _gqa_scores(q, k).float()  # [B,K,G,S,W_local]
+        if valid is not None:
+            live = valid[offset[1]:offset[1] + k.shape[1]]
+            scores = torch.where(live[None, None, None, None, :], scores, NEG_INF)
+        top = scores.amax(-1, keepdim=True)
+        for g in groups:
+            top = funcol.all_reduce(top, "max", g)
+        e = torch.exp(scores - top)
+        total = e.sum(-1, keepdim=True)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        return _gqa_combine((e / total).to(q.dtype), v)
+
+    out_pl = tuple(Partial("sum") if i in w_dims else p for i, p in enumerate(q_pl))
+    out = local_map(body, out_placements=list(out_pl), in_placements=(q_pl, cpl, cpl),
+                    device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    return out.redistribute(mesh, q_pl)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """cache[:, slot] = new, in place. On a DTensor cache (B, W, K, Hd) the
+    write goes into the local shard of the rank that holds the slot: `new` is
+    brought to the cache's placements (W replicated) and written at the
+    slot's local index, so a cache sharded over its length stays in place."""
+    if not isinstance(cache, DTensor):
+        cache[:, slot:slot + 1] = new.to(cache.dtype)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    new = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p for p in pl]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    local, slot = cache.to_local(), slot - offset[1]
+    if 0 <= slot < shape[1]:
+        local[:, slot:slot + 1] = new.to(local.dtype)
 
 
 def cache_update(
@@ -169,8 +283,8 @@ def cache_update(
     """
     W = k_cache.shape[1]
     slot = min(pos % W if window > 0 else pos, W - 1)
-    k_cache[:, slot:slot + 1] = k_new.to(k_cache.dtype)
-    v_cache[:, slot:slot + 1] = v_new.to(v_cache.dtype)
+    _write_slot(k_cache, k_new, slot)
+    _write_slot(v_cache, v_new, slot)
     if pos >= W:  # after wrap every slot is live
         valid = torch.ones(W, dtype=torch.bool, device=k_cache.device)
     else:

@@ -1,12 +1,17 @@
 """Shared model components: norms, RoPE, initializers, cross-entropy, SwiGLU.
 
 Torch counterparts of `repro.models.common`, with the same cast order so
-that the two packages compute the same thing.
+that the two packages compute the same thing. `swiglu` keeps the
+reference's `constrain` call on its hidden layer; `cross_entropy` takes
+logits sharded over the vocabulary (a DTensor) too.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from ..sharding.ctx import constrain
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -51,10 +56,22 @@ def embed_init(gen: torch.Generator, shape: tuple, dtype=torch.bfloat16) -> torc
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
                   ignore_id: int = -1) -> torch.Tensor:
     """Mean token-level CE in fp32 over the targets that are not
-    `ignore_id`. logits [..., V], targets [...] int."""
+    `ignore_id`. logits [..., V], targets [...] int.
+
+    On a DTensor, whose vocabulary may be sharded, the log-sum-exp is taken
+    from each shard's max and sum of exponentials and the gold logit picked
+    by a mask: DTensor reduces both over the shards (all-reduces), where a
+    gather along the sharded vocabulary has no sharding rule."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long().clamp(min=0)[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        top = logits.detach().amax(-1, keepdim=True)
+        logz = torch.log(torch.exp(logits - top).sum(-1)) + top[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        pick = vocab == targets.long().clamp(min=0)[..., None]
+        gold = torch.where(pick, logits, 0.0).sum(-1)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long().clamp(min=0)[..., None])[..., 0]
     mask = (targets != ignore_id).float()
     return torch.sum((logz - gold) * mask) / mask.sum().clamp(min=1.0)
 
@@ -63,4 +80,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    h = F.silu(g) * u
+    if h.ndim == 3:
+        h = constrain(h, "bsf")
+    return h @ w_down

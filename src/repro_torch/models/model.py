@@ -16,18 +16,27 @@ reference's `lax.scan` over layers is a Python loop over the layer axis.
 Entry points:
 
   param_shapes / init_params      parameters
+  abstract_params                 parameters as meta tensors (dry-run currency)
   forward                         causal LM forward (+ MoE aux losses)
   loss_fn                         training loss: token CE (+ MoE aux terms)
   prefill_forward                 serving prefill, returns the decode cache
   init_cache / decode_step        decode caches and the single-token step
+  cache_shapes                    decode caches as meta tensors
   prefill                         replay prefill through decode_step
   encode                          audio encoder (enc-dec only)
   DecoderLM                       an nn.Module holding the parameters
 
 SSM layers are Mamba2 mixers (`ssm.py`); hybrid layers run attention and
 the mixer in parallel from the same input and average them. MoE layers
-call `moe.moe_ffn_sorted` where the reference calls `moe_ffn_ep`, which
-is `moe_ffn_sorted` without a mesh.
+call `moe.moe_ffn_ep` in the prefill and training passes and
+`moe.moe_ffn_sorted` in the decode step, as the reference's do; without a
+mesh both are the sorted dispatch.
+
+Under `repro_torch.sharding.ctx.activation_sharding(mesh)`, with the
+parameters as DTensors (`sharding.rules.param_shardings`), every entry
+point runs sharded: the reference's `constrain` calls stand at their
+counterparts and redistribute the activations, and the kernels run on local
+shards.
 """
 from __future__ import annotations
 
@@ -35,15 +44,18 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
+from ..sharding.ctx import constrain, hold_layout, split_dim
 from .attention import attend_cached, attend_cross, attend_full, cache_update, prefill_attention
 from .common import (apply_rope, cross_entropy, dense_init, embed_init, rms_norm,
                      rope_angles, swiglu)
-from .moe import moe_ffn_sorted, moe_param_shapes
+from .moe import moe_ffn_ep, moe_ffn_sorted, moe_param_shapes
 from .ssm import mamba2_mixer, mamba2_mixer_step, mixer_param_shapes
 
 Params = Dict[str, Any]
@@ -153,6 +165,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
     return build(shapes)
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> Params:
+    """`param_shapes(cfg)` as meta tensors of `dtype` (no allocation): the
+    dry run's currency, as the reference's ShapeDtypeStruct tree is."""
+    def build(tree: Dict[str, Any]) -> Params:
+        return {name: build(sub) if isinstance(sub, dict)
+                else torch.empty(sub, dtype=dtype, device="meta") for name, sub in tree.items()}
+
+    return build(param_shapes(cfg))
+
+
 def _frozen(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
 
@@ -201,9 +223,9 @@ def _project_qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch
     v = h @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(B, S, H, Hd)
-    k = k.reshape(B, S, K, Hd)
-    v = v.reshape(B, S, K, Hd)
+    q = constrain(split_dim(q, -1, H, Hd), "bshd")
+    k = constrain(split_dim(k, -1, K, Hd), "bshd")
+    v = constrain(split_dim(v, -1, K, Hd), "bshd")
     cos, sin = rope_angles(positions, Hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -222,18 +244,22 @@ def _ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
     return out
 
 
+def _merge_heads(a: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Hd) -> (B, S, H*Hd). A DTensor's gradient comes back in this
+    layout, so the backward split into heads never meets a shard it cannot
+    split."""
+    return hold_layout(a.reshape(a.shape[0], a.shape[1], -1))
+
+
 def _project_q(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    B, S, _ = h.shape
-    return (h @ w).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return split_dim(h @ w, -1, cfg.num_heads, cfg.resolved_head_dim)
 
 
 def _project_kv_cross(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor):
     """The decoder layer's cross-attention K/V over the encoder's output:
     (B, S_enc, K, Hd) each, no RoPE."""
-    B, Se, _ = enc_out.shape
     K, Hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return ((enc_out @ lp["xwk"]).reshape(B, Se, K, Hd),
-            (enc_out @ lp["xwv"]).reshape(B, Se, K, Hd))
+    return split_dim(enc_out @ lp["xwk"], -1, K, Hd), split_dim(enc_out @ lp["xwv"], -1, K, Hd)
 
 
 def _cross_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, kx: torch.Tensor,
@@ -241,17 +267,21 @@ def _cross_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, kx: torch.Tensor
     """x + cross-attention of the normed x over the encoder's K/V."""
     hx = rms_norm(x, lp["lnx"], cfg.norm_eps)
     a = attend_cross(_project_q(cfg, lp["xwq"], hx), kx, vx)
-    return x + a.reshape(x.shape[0], x.shape[1], -1) @ lp["xwo"]
+    return x + _merge_heads(a) @ lp["xwo"]
 
 
-def _ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor
+def _ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, moe=moe_ffn_ep
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x + the FFN of the normed x (SwiGLU, or the MoE FFN over the B*S
-    tokens); returns the MoE aux losses ({} for a dense FFN)."""
+    """x + the FFN of the normed x (SwiGLU, or the MoE FFN `moe` over the
+    B*S tokens); returns the MoE aux losses ({} for a dense FFN)."""
+    # the residual stream's layout before the FFN reads it (a site of the
+    # port's own: DTensor would otherwise carry the attention output's partial
+    # sum into the FFN and replicate its products over `model`)
+    x = constrain(x, "bsd")
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.num_experts == 0:
         return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
-    y, aux = moe_ffn_sorted(cfg, lp, h2.reshape(-1, h2.shape[-1]))
+    y, aux = moe(cfg, lp, h2.reshape(-1, h2.shape[-1]))
     return x + y.reshape(h2.shape), aux
 
 
@@ -269,11 +299,14 @@ def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: tor
         return x + y, {}, cache
     q, k, v = _project_qkv(cfg, lp, h, positions)
     a = prefill_attention(q, k, v, window=cfg.sliding_window, use_pallas=cfg.use_pallas)
-    attn = a.reshape(a.shape[0], a.shape[1], -1) @ lp["wo"]
+    a = constrain(a, "bshd")
+    attn = _merge_heads(a) @ lp["wo"]
     if collect_cache:
         if cfg.sliding_window > 0:
             k, v = _ring_cache(k, cfg.sliding_window), _ring_cache(v, cfg.sliding_window)
-        cache.update({"k": k, "v": v})
+        # the decode-cache layout here, so the cache's length sharding does
+        # not reach back into attention
+        cache.update({"k": constrain(k, "cache_kv"), "v": constrain(v, "cache_kv")})
     mixed = attn
     if cfg.hybrid:
         y, st, conv_tail = mamba2_mixer(cfg, lp, h)
@@ -285,9 +318,9 @@ def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: tor
         kx, vx = _project_kv_cross(cfg, lp, enc_out)
         x = _cross_block(cfg, lp, x, kx, vx)
         if collect_cache:
-            cache.update({"enc_k": kx, "enc_v": vx})
+            cache.update({"enc_k": constrain(kx, "cache_kv"), "enc_v": constrain(vx, "cache_kv")})
     x, aux = _ffn_block(cfg, lp, x)
-    return x, aux, cache
+    return constrain(x, "bsd"), aux, cache
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -302,7 +335,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(cfg, lp, h, positions)
         a = attend_full(q, k, v, causal=False)
-        x = x + a.reshape(x.shape[0], x.shape[1], -1) @ lp["wo"]
+        x = x + _merge_heads(a) @ lp["wo"]
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
@@ -315,6 +348,18 @@ def _encoder_output(cfg: ModelConfig, params: Params,
     if enc_frames is None:
         raise ValueError(f"{cfg.name}: the enc-dec family needs enc_frames (B, S_enc, D)")
     return encode(cfg, params, enc_frames)
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings (B, S, D), in the residual stream's layout. A
+    DTensor table is first gathered over every axis but its vocabulary's
+    (FSDP's gather), so the lookup is vocab-parallel: each rank looks its
+    tokens up in its rows, and the residual layout sums the ranks."""
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh, [p if p.is_shard(0) else Replicate()
+                                                       for p in table.placements])
+    return constrain(F.embedding(tokens.long(), table), "bsd")
 
 
 def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -337,7 +382,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     come out of the checkpoint as outputs. The stacked layer leaves are
     unbound once, so each leaf's gradient is one stack of L slices."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device)
     enc_out = _encoder_output(cfg, params, enc_frames)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -352,7 +397,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     denom = max(cfg.num_layers, 1)
-    return _logits(params, x), {"lb_loss": lb / denom, "z_loss": zl / denom}
+    return constrain(_logits(params, x), "logits"), {"lb_loss": lb / denom,
+                                                     "z_loss": zl / denom}
+
+
+def _map_leaves(fn, tree: Params) -> Params:
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
@@ -361,10 +411,14 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]
     "enc_frames" for enc-dec): mean token CE, plus 0.01 lb_loss + 0.001
     z_loss in the MoE family. Returns (loss, {"ce", "lb_loss", "z_loss"}).
     Raises ValueError for `cfg.use_pallas`: the hand-written kernels have
-    no backward pass, as the reference's Pallas kernels have none."""
+    no backward pass, as the reference's Pallas kernels have none. On
+    DTensor parameters each gradient is brought to its parameter's layout
+    (reduced over the ranks that hold partial sums of it), as the
+    reference's train step fixes its gradients' shardings."""
     if cfg.use_pallas:
         raise ValueError(f"{cfg.name}: training takes the plain path (use_pallas=False); "
                          "the hand-written kernels have no backward pass")
+    params = _map_leaves(hold_layout, params)
     logits, aux = forward(cfg, params, batch["tokens"], enc_frames=batch.get("enc_frames"))
     ce = cross_entropy(logits, batch["targets"])
     loss = ce
@@ -385,7 +439,7 @@ def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     K, Hd), the cross-attention K/V over the encoder's output, for
     enc-dec (which needs enc_frames)."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device)
     enc_out = _encoder_output(cfg, params, enc_frames)
     lp = params["layers"]
@@ -396,35 +450,45 @@ def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         caches.append(cache)
     x_last = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     stacked = {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
-    return _logits(params, x_last)[:, 0], stacked
+    return constrain(_logits(params, x_last), "logits")[:, 0], stacked
 
 
 # ---------------------------------------------------------------------------
 # Decode (serving)
 # ---------------------------------------------------------------------------
 
+def _cache_struct(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, dtype
+                  ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    L, K, Hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    W = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
+    s: Dict[str, Tuple[tuple, torch.dtype]] = {}
+    if cfg.arch_type != "ssm":
+        s["k"] = s["v"] = ((L, batch, W, K, Hd), dtype)
+    if cfg.arch_type == "ssm" or cfg.hybrid:
+        di, N = cfg.ssm_d_inner, cfg.ssm_state
+        s["ssm_state"] = ((L, batch, cfg.ssm_nheads, cfg.ssm_headdim, N), torch.float32)
+        s["conv_buf"] = ((L, batch, cfg.ssm_conv - 1, di + 2 * N), dtype)
+    if cfg.is_encdec:
+        s["enc_k"] = s["enc_v"] = ((L, batch, enc_len, K, Hd), dtype)
+    return s
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device: DeviceLike = None, *, enc_len: int = 0) -> Dict[str, torch.Tensor]:
     """Zeroed decode caches, laid out as the reference's `init_cache`; the
     SSM state is fp32 whatever `dtype` is. enc-dec adds "enc_k"/"enc_v"
     of `enc_len` encoder positions."""
-    L, K, Hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    W = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
     dev = default_device(device)
-    cache: Dict[str, torch.Tensor] = {}
-    if cfg.arch_type != "ssm":
-        for name in ("k", "v"):
-            cache[name] = torch.zeros((L, batch, W, K, Hd), dtype=dtype, device=dev)
-    if cfg.arch_type == "ssm" or cfg.hybrid:
-        di, N = cfg.ssm_d_inner, cfg.ssm_state
-        cache["ssm_state"] = torch.zeros((L, batch, cfg.ssm_nheads, cfg.ssm_headdim, N),
-                                         dtype=torch.float32, device=dev)
-        cache["conv_buf"] = torch.zeros((L, batch, cfg.ssm_conv - 1, di + 2 * N),
-                                        dtype=dtype, device=dev)
-    if cfg.is_encdec:
-        for name in ("enc_k", "enc_v"):
-            cache[name] = torch.zeros((L, batch, enc_len, K, Hd), dtype=dtype, device=dev)
-    return cache
+    return {name: torch.zeros(shape, dtype=dt, device=dev)
+            for name, (shape, dt) in _cache_struct(cfg, batch, max_len, enc_len, dtype).items()}
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+                 dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """`init_cache`'s layout as meta tensors (no allocation), as the
+    reference's ShapeDtypeStruct dict."""
+    return {name: torch.empty(shape, dtype=dt, device="meta")
+            for name, (shape, dt) in _cache_struct(cfg, batch, max_len, enc_len, dtype).items()}
 
 
 def _mixer_step(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -446,7 +510,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
     `cache` in place and returns (logits (B, V) fp32, cache). MoE layers
     route the B tokens with the capacity of T = B."""
     pos = int(pos)
-    x = params["embed"][token.long()]
+    x = _embed(params, token)
     positions = torch.full((1,), pos, device=x.device)
     lp = params["layers"]
     for i in range(cfg.num_layers):
@@ -459,15 +523,15 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
         k_cache, v_cache, valid = cache_update(
             cache["k"][i], cache["v"][i], k, v, pos, window=cfg.sliding_window)
         a = attend_cached(q, k_cache, v_cache, valid)
-        mixed = a.reshape(x.shape[0], 1, -1) @ p["wo"]
+        mixed = _merge_heads(a) @ p["wo"]
         if cfg.hybrid:
             mixed = 0.5 * (mixed + _mixer_step(cfg, p, h, cache, i))
         x = x + mixed
         if cfg.is_encdec:
             x = _cross_block(cfg, p, x, cache["enc_k"][i], cache["enc_v"][i])
-        x, _ = _ffn_block(cfg, p, x)
+        x, _ = _ffn_block(cfg, p, x, moe=moe_ffn_sorted)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x)[:, 0], cache
+    return constrain(_logits(params, x), "logits")[:, 0], cache
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int, *,

@@ -16,19 +16,32 @@ after another in expert-ascending order, the order in which the
 reference's scatter-add applies them, with no atomics: its bits do not
 change from run to run.
 
-`moe_ffn_ep` (expert parallelism under a mesh) is not ported; without a
-mesh the reference returns `moe_ffn_sorted`, which the port's layers call
-directly. The reference's `constrain` calls are the identity without a
-mesh and are dropped.
+`moe_ffn_ep` is expert parallelism under a mesh (`repro_torch.sharding.
+ctx`), the reference's `shard_map` body on each rank's local tensors
+through `local_map`: every model-rank routes its data shard's tokens and
+computes only its E / `model` experts at the capacity of the local
+tokens; the partial outputs are summed over `model`. Without a usable
+mesh it is `moe_ffn_sorted`. On a DTensor `moe_ffn_sorted` (the decode
+step's MoE, as in the reference) keeps its semantics, every token routed
+at the capacity of all T tokens, and runs the same way with the tokens
+gathered, expert-parallel when `model` divides E. The collectives are
+DTensor redistributions (functional collectives underneath): the expert
+weights gathered over `data`, the partial outputs all-reduced over
+`model`, the aux losses averaged over the batch axes.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..sharding.ctx import _cur, constrain
+from ..sharding.rules import axis_sizes, batch_axes, placements
 
 
 def route(x: torch.Tensor, router_w: torch.Tensor, k: int
@@ -70,33 +83,36 @@ def capacity(cfg: ModelConfig, T: int) -> int:
     return max(1, int(T * cfg.experts_per_token / cfg.num_experts * cfg.moe_capacity_factor))
 
 
-def bucket_slots(idx: torch.Tensor, E: int, C: int
+def bucket_slots(idx: torch.Tensor, E: int, C: int, e_lo: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sort-based bucketing of the (token, pick) pairs of idx (T, k): the
-    stable expert-sorted order of the flat pairs, and in that order each
-    pair's slot e * C + rank in its expert's bucket (E * C, the sentinel,
-    once the bucket is full) and whether it was kept."""
+    """Sort-based bucketing of the (token, pick) pairs of idx (T, k) into
+    the E experts [e_lo, e_lo + E): the stable expert-sorted order of the
+    flat pairs (pairs of other experts last), and in that order each pair's
+    slot e * C + rank in its expert's bucket (E * C, the sentinel, once the
+    bucket is full or for another expert) and whether it was kept. With
+    e_lo = 0 and E all the experts, every pair is bucketed."""
     flat_e = idx.reshape(-1)  # (T*k,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
+    local = torch.where((flat_e >= e_lo) & (flat_e < e_lo + E), flat_e - e_lo, E)
+    order = torch.argsort(local, stable=True)
+    sorted_e = local[order]
     # rank of each pair within its expert group
-    group_start = torch.searchsorted(sorted_e, torch.arange(E, device=idx.device), side="left")
+    group_start = torch.searchsorted(sorted_e, torch.arange(E + 1, device=idx.device),
+                                     side="left")
     rank = torch.arange(flat_e.numel(), device=idx.device) - group_start[sorted_e]
-    keep = rank < C
+    keep = (sorted_e < E) & (rank < C)
     slot = torch.where(keep, sorted_e * C + rank, E * C)  # overflow -> sentinel
     return order, slot, keep
 
 
-def moe_ffn_sorted(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (T, D) -> (out (T, D) in x's type, aux with "lb_loss",
-    "z_loss" and "dropped", the count of (token, expert) pairs whose
-    expert was full)."""
+def _experts_local(x: torch.Tensor, weights: torch.Tensor, idx: torch.Tensor,
+                   w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor, *,
+                   C: int, e_lo: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch, expert products and combine for the experts [e_lo, e_lo +
+    E) whose weights are given ((E, D, F) / (E, F, D)); the pairs of other
+    experts contribute zero. Returns (out (T, D) in x's type, keep)."""
     T, D = x.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
-    C = capacity(cfg, T)
-    weights, idx, aux = route(x, p["router"], k)
-    order, slot, keep = bucket_slots(idx, E, C)
+    E, k = w_gate.shape[0], idx.shape[1]
+    order, slot, keep = bucket_slots(idx, E, C, e_lo)
     tok = order // k
 
     # gather tokens into (E, C, D) buckets; the sentinel row is zeros. Every
@@ -104,17 +120,112 @@ def moe_ffn_sorted(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     table = torch.full((E * C + 1,), T, dtype=torch.long, device=x.device)
     table[slot] = torch.where(keep, tok, T)
     x_pad = torch.cat([x, x.new_zeros(1, D)])
-    xe = x_pad[table[:E * C]].reshape(E, C, D)
+    xe = constrain(x_pad[table[:E * C]].reshape(E, C, D), "ecd")
 
-    ye = _expert_ffn(xe, p["w_gate"], p["w_up"], p["w_down"])  # (E, C, D)
+    ye = constrain(_expert_ffn(xe, w_gate, w_up, w_down), "ecd")  # (E, C, D)
 
     # combine weights on the bucket outputs (dropped pairs contribute zero)
     ye_flat = torch.cat([ye.reshape(E * C, D), ye.new_zeros(1, D)])
     contrib = ye_flat[slot] * keep[:, None].to(ye.dtype)
     w_sorted = weights.reshape(-1)[order].to(contrib.dtype)
-    out = _combine(contrib * w_sorted[:, None], order, T, k, x.dtype)
-    aux = dict(aux, dropped=(~keep).sum())
-    return out, aux
+    return _combine(contrib * w_sorted[:, None], order, T, k, x.dtype), keep
+
+
+def moe_ffn_sorted(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (T, D) -> (out (T, D) in x's type, aux with "lb_loss",
+    "z_loss" and "dropped", the count of (token, expert) pairs whose
+    expert was full). A DTensor x runs on its mesh (`_sharded_moe`, all T
+    tokens on every rank) with the same routing and capacity, "dropped"
+    then 0 as in `moe_ffn_ep`."""
+    if isinstance(x, DTensor):
+        return _sharded_moe(cfg, p, x, shard_tokens=False)
+    weights, idx, aux = route(x, p["router"], cfg.experts_per_token)
+    out, keep = _experts_local(x, weights, idx, p["w_gate"], p["w_up"], p["w_down"],
+                               C=capacity(cfg, x.shape[0]))
+    return out, dict(aux, dropped=(~keep).sum())
+
+
+#: Calls of `moe_ffn_ep` that ran expert-parallel since the count was last set to 0.
+ep_calls = 0
+
+
+def moe_ffn_ep(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Expert-parallel MoE FFN: x (T, D) globally, rows sharded over the
+    batch axes. Tokens never leave their data shard: every model-rank
+    routes the same local tokens at C = max(1, int(T_loc k / E cf)),
+    computes only its E / `model` experts, and one all-reduce over `model`
+    combines the partial outputs. Without a usable mesh (no context,
+    disabled, no `model` axis, E % model != 0 or T % batch != 0) it is
+    `moe_ffn_sorted`. Under one, x must be a DTensor. "dropped" is 0, as in
+    the reference."""
+    global ep_calls
+    ctx = _cur()
+    if ctx is None or not ctx["enabled"] or ctx["model"] is None:
+        return moe_ffn_sorted(cfg, p, x)
+    sizes = ctx["sizes"]
+    if cfg.num_experts % sizes["model"] or x.shape[0] % _batch_size(sizes):
+        return moe_ffn_sorted(cfg, p, x)
+    if not isinstance(x, DTensor):
+        raise TypeError("moe_ffn_ep under a sharding context takes a DTensor")
+    ep_calls += 1
+    return _sharded_moe(cfg, p, x, shard_tokens=True)
+
+
+def _batch_size(sizes: Dict[str, int]) -> int:
+    return math.prod(sizes[a] for a in batch_axes(sizes))
+
+
+def _sharded_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: DTensor, *,
+                 shard_tokens: bool) -> Tuple[DTensor, Dict[str, torch.Tensor]]:
+    """The reference's `shard_map` body on x's mesh under `local_map`. Each
+    rank takes its tokens (its data shard's rows if `shard_tokens`, else all
+    T rows, gathered), the router replicated and its experts' weights
+    gathered over `data`: its E / `model` experts when `model` divides E
+    (expert parallelism), else all E. It routes the tokens, buckets its
+    experts at the capacity of the tokens it holds, runs their products and
+    combines them (expert order, no atomics). The output is a partial sum
+    over `model` under expert parallelism, and the aux losses (of each
+    rank's tokens) are averaged over the batch axes: each rank's share is
+    divided by the ranks that sum it, so that every partial is a sum and
+    its gradient reaches each rank whole. The inputs' gradients are
+    partial sums where the ranks' work is split: over `model` for the
+    tokens and the router under expert parallelism, over the batch axes
+    for the router and the expert weights."""
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    E = cfg.num_experts
+    ep = "model" in sizes and E % sizes["model"] == 0
+    E_loc = E // sizes["model"] if ep else E
+    e_lo = mesh.get_local_rank("model") * E_loc if ep else 0
+    token_axes = batch_axes(sizes) if shard_tokens else ()
+    split = tuple(n for n in sizes if n in token_axes or (ep and n == "model"))
+    share = math.prod(sizes[n] for n in split)
+    C = capacity(cfg, x.shape[0] // (_batch_size(sizes) if shard_tokens else 1))
+
+    def body(x_l, router, wg, wu, wd):
+        weights, idx, aux = route(x_l, router, cfg.experts_per_token)
+        out, _ = _experts_local(x_l, weights, idx, wg, wu, wd, C=C, e_lo=e_lo)
+        return out, aux["lb_loss"] / share, aux["z_loss"] / share
+
+    def partial_over(axes, base):
+        return tuple(Partial("sum") if n in axes else pl for n, pl in zip(sizes, base))
+
+    rows = placements((token_axes or None, None), mesh)
+    rep = placements((), mesh)
+    experts = placements(("model" if ep else None, None, None), mesh)
+    model = ("model",) if ep else ()
+    mean = partial_over(split, rep)
+    fn = local_map(body, device_mesh=mesh, redistribute_inputs=True,
+                   out_placements=(partial_over(model, rows), mean, mean),
+                   in_placements=(rows, rep, experts, experts, experts),
+                   in_grad_placements=(partial_over(model, rows), mean,
+                                       *[partial_over(token_axes, experts)] * 3))
+    out, lb, zl = fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    return out.redistribute(mesh, rows), {
+        "lb_loss": lb.redistribute(mesh, rep), "z_loss": zl.redistribute(mesh, rep),
+        "dropped": torch.zeros((), dtype=torch.int32, device=x.device)}
 
 
 def _combine(contrib: torch.Tensor, order: torch.Tensor, T: int, k: int,

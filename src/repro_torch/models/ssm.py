@@ -7,8 +7,9 @@ SSD-scan kernel (the Hopper kernel on CUDA tensors, its plain version on
 CPU tensors); `ssd_recurrent_ref` is the step-by-step oracle; `ssd_step`
 is the O(1) decode update. The depthwise causal conv is a sum of shifts
 (kernel size 4), as in the reference: `F.conv1d` would go through cuDNN,
-which runs float32 in TF32 by default. The reference's sharding
-constraints are left out (sharding is not ported).
+which runs float32 in TF32 by default. The reference's `constrain` calls
+stand at their counterparts; under a sharding context the SSD-scan kernel
+runs on each rank's local shard through `local_map`, heads over `model`.
 """
 from __future__ import annotations
 
@@ -16,8 +17,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..sharding.ctx import _cur, constrain, rule
+from ..sharding.rules import placements
 from .common import rms_norm
 
 
@@ -44,6 +49,8 @@ def ssd_chunked(
     """Returns (y (b,s,h,p), final_state (b,h,p,n)) in x's dtype. The
     inter-chunk recurrence is an eager loop, so `prev * dec + st` is never
     contracted into an fma (the reference's `/ one` guard is not needed)."""
+    if isinstance(x, DTensor) and _cur() is not None:
+        return _ssd_local(x, a, B, C, chunk, initial_state, use_pallas)
     if use_pallas:
         from ..kernels.ssd_scan.ops import ssd_chunked as ssd_kernel
 
@@ -91,6 +98,29 @@ def ssd_chunked(
                          state_decay_out.to(x.dtype))
     y = (Y_diag + Y_off).reshape(b, s, h, p)
     return y, carry.to(x.dtype)
+
+
+def _ssd_local(x, a, B, C, chunk: int, initial_state, use_pallas: bool):
+    """`ssd_chunked` (the kernel or the plain path) on each rank's shard
+    under `local_map`: batch over the batch axes, heads over `model` (when
+    they divide it); B and C are shared by the heads. Heads are
+    independent, so this is exact, and DTensor propagates no sharding
+    through the scan's own ops."""
+    ctx = _cur()
+    mesh = ctx["mesh"]
+    xs = rule("bshd", tuple(x.shape), ctx)  # (b, s, h, p)
+    b, heads = xs[0], xs[2]
+    pl_x, pl_a, pl_bc = (placements(s, mesh) for s in (xs, (b, None, heads), (b, None, None)))
+    pl_st = placements((b, heads, None, None), mesh)  # (b, h, p, n)
+
+    def body(x, a, B, C, st):
+        return ssd_chunked(x, a, B, C, chunk=chunk, initial_state=st, use_pallas=use_pallas)
+
+    fn = local_map(body, out_placements=(pl_x, pl_st), device_mesh=mesh,
+                   in_placements=(pl_x, pl_a, pl_bc, pl_bc,
+                                  None if initial_state is None else pl_st),
+                   redistribute_inputs=True)
+    return fn(x, a, B, C, initial_state)
 
 
 def ssd_recurrent_ref(
@@ -178,6 +208,8 @@ def mamba2_mixer(
     di, N, nh, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     zxbcdt = x @ p["ssm_in"]
     z, xBC, dt = _split_proj(cfg, zxbcdt)
+    z = constrain(z, "bsf")
+    xBC = constrain(xBC, "bsf")
     tail = cfg.ssm_conv - 1
     pad_raw = F.pad(xBC, (0, 0, tail, 0))
     conv_tail = pad_raw[:, pad_raw.shape[1] - tail:, :]

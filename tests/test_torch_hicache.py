@@ -1,7 +1,8 @@
 """The port's host serving layers against the reference's, on the CPU: the
 paged KV pools, HiCache tiering over the engine on materialized pools,
-the P-squared percentile sketches, the checkpoint engine and the
-performance models. Host numpy in both packages, so every number and
+the P-squared percentile sketches, the checkpoint engine (also the RL
+weight refresh at qwen2-0.5b's size, sizes only) and the performance
+models. Host numpy in both packages, so every number and
 every byte is compared for equality."""
 import dataclasses
 
@@ -10,10 +11,14 @@ import pytest
 
 import repro.configs as ref_configs
 import repro.core as ref_core
+import repro.scenarios as ref_scenarios
 import repro.serving as ref_serving
 import repro_torch.configs as port_configs
 import repro_torch.core as port_core
+import repro_torch.scenarios as port_scenarios
 import repro_torch.serving as port_serving
+from repro_torch.models import param_shapes
+from repro_torch.training.tree import named_leaves
 
 ARCHS = ["qwen2-0.5b", "mamba2-370m", "hymba-1.5b", "qwen3-moe-235b-a22b", "deepseek-7b"]
 
@@ -236,3 +241,41 @@ def test_perf_models_match_reference(arch):
     want = ref_serving.from_roofline(ref_configs.get_config(arch), chips=8)
     assert (got.prefill_tokens_per_s, got.tpot) == (want.prefill_tokens_per_s, want.tpot)
     assert got.prefill_seconds(4096) == want.prefill_seconds(4096)
+
+
+def _rl_refresh_table() -> dict:
+    """qwen2-0.5b's bf16 parameters as a sizes-only checkpoint table, keyed
+    as `flatten_state` keys them: 988,065,536 bytes."""
+    cfg = port_configs.get_config("qwen2-0.5b")
+    return {key: 2 * int(np.prod(shape))
+            for key, shape in named_leaves(param_shapes(cfg))}
+
+
+# the reference's virtual seconds for the refresh, and its slices, per policy
+RL_REFRESH = {"round_robin": (0.028181969976965378, 1024), "tent": (0.00784530856261588, 1024)}
+
+
+@pytest.mark.parametrize("policy", sorted(RL_REFRESH))
+def test_rl_refresh_virtual_time_equals_reference(policy):
+    """The weight refresh of `chip_smoke.py::phase_rl_update`, sizes only:
+    the checkpoint_broadcast scenario with rails (0, 1) and (0, 5) at 25 %
+    for the whole run, seed 3, to 2 nodes x 8 GPUs. Both packages give the
+    reference's virtual seconds bit for bit, and the same slices."""
+    table = _rl_refresh_table()
+    assert sum(table.values()) == 988_065_536
+    got = {}
+    for name, scenarios, serving in (("ref", ref_scenarios, ref_serving),
+                                     ("port", port_scenarios, port_serving)):
+        spec = dataclasses.replace(
+            scenarios.get("checkpoint_broadcast"), name="rl_weight_update", seed=3,
+            faults=tuple(scenarios.FaultEvent("degrade", node=node, nic=nic, at=0.0, until=1e9,
+                                              factor=0.25) for node, nic in ((0, 1), (0, 5))))
+        engine, _ = scenarios.ScenarioRunner(spec).build_engine(policy)
+        ce = serving.CheckpointEngine(engine, nodes=2, gpus_per_node=8, materialize=False)
+        ce.register_checkpoint(table)
+        res = ce.update()
+        got[name] = (res.seconds, res.bytes, res.ranks, engine.slices_issued)
+    seconds, slices = RL_REFRESH[policy]
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == seconds
+    assert got["port"][3] == slices

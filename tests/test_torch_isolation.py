@@ -1,6 +1,7 @@
 """The port stands alone: importing every `repro_torch` module pulls in
 neither `jax` nor any module of the reference package `repro`, and its
-entry points never fall back to the CPU on their own."""
+entry points never fall back to the CPU on their own. Importing it creates
+no process group and sets no environment variable."""
 import ast
 import json
 import os
@@ -17,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
 _PROBE = """
-import importlib, json, pathlib, sys
+import importlib, json, os, pathlib, sys
+env = dict(os.environ)
 pkg = pathlib.Path(sys.argv[1])
 mods = []
 for p in sorted(pkg.rglob("*.py")):
@@ -31,7 +33,11 @@ for m in mods:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({"n": len(mods), "mods": mods, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"n": len(mods), "mods": mods, "bad": bad,
+                  "group": dist.is_available() and dist.is_initialized(),
+                  "env_changed": sorted(k for k in set(env) | set(os.environ)
+                                        if env.get(k) != os.environ.get(k))}))
 """
 
 # the modules that carry the engine's device paths and the observability
@@ -48,6 +54,11 @@ TRAINING_MODULES = [
     "repro_torch.training", "repro_torch.training.optimizer", "repro_torch.training.data",
     "repro_torch.training.checkpoint", "repro_torch.training.train_loop",
 ]
+# sharding and launch: no process group and no environment variable at import
+LAUNCH_MODULES = [
+    "repro_torch.sharding.rules", "repro_torch.sharding.ctx", "repro_torch.launch.mesh",
+    "repro_torch.launch.roofline", "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
+]
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -57,8 +68,10 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     assert seen["n"] >= 30  # every module of the package was imported
-    assert set(ENGINE_MODULES + TRAINING_MODULES) <= set(seen["mods"])
+    assert set(ENGINE_MODULES + TRAINING_MODULES + LAUNCH_MODULES) <= set(seen["mods"])
     assert seen["bad"] == [], f"repro_torch pulled in: {seen['bad']}"
+    assert seen["group"] is False, "importing the port created a process group"
+    assert seen["env_changed"] == [], f"importing the port set {seen['env_changed']}"
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
