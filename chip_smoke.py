@@ -140,6 +140,14 @@ Phases, one JSON line each on stdout:
            ranks, host work only; each must exit 0 and every case's bytes
            a device must equal the reference's; its FLOPs, collective
            bytes, roofline terms and seconds are printed.
+  lint     the port's static checks on this machine: tentlint
+           (`repro_torch.analysis.lint --strict`) over the package's Python
+           and CUDA sources, the tests, this script and the kernel probe
+           must exit 0; the rule's reading of each library's sources and
+           nvcc flags (`rules.cuda_builds`) must equal what this run loaded
+           (`kernels.build.loaded_builds`), for all five libraries; and
+           single_rail_flap through the port's scenario runner under the
+           runtime sanitizer (`sanitized()`) must report no violation.
 
 Then a {"kernels": [...]} summary and, last, {"ok": true, "device": ...}.
 Any failed check raises and the script exits non-zero. Without a card it
@@ -170,6 +178,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
 
+from repro_torch.analysis import lint as tentlint  # noqa: E402
+from repro_torch.analysis.core import Project, iter_source_files  # noqa: E402
+from repro_torch.analysis.rules import cuda_builds  # noqa: E402
+from repro_torch.analysis.sanitize import sanitized  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import EngineConfig, Fabric, FabricSpec, TelemetryStore, TentEngine  # noqa: E402
 from repro_torch.core import Topology, jit_core  # noqa: E402
@@ -187,6 +199,7 @@ from repro_torch.core.scheduler import (  # noqa: E402
 )
 from repro_torch.core.topology import LinkDesc  # noqa: E402
 from repro_torch.core.types import LinkClass, Location, MemoryKind  # noqa: E402
+from repro_torch.kernels.build import loaded_builds  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ref, kv_unpack, kv_unpack_ref  # noqa: E402
@@ -321,6 +334,10 @@ RL_PREFILL_BATCH, RL_PREFILL_LEN = 4, 1024
 # reference example's three tiers, scaled to these pages
 HICACHE_TIERS, HICACHE_PAGE_TOKENS, HICACHE_CONVO = (64, 128, 256), 64, 4096
 
+# lint: the libraries whose flags tentlint reads and this run loads, and
+# the scenario run under the runtime sanitizer
+LINT_LIBRARIES = ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim")
+SANITIZED_SCENARIO = "single_rail_flap"
 # kernel name -> (module, launch-count attribute)
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "ssd_scan": (ssd_kernel, "launches"),
             "kv_pack": (kv_kernel, "pack_launches"), "kv_unpack": (kv_kernel, "unpack_launches"),
@@ -1434,6 +1451,44 @@ def phase_dryrun() -> dict:
                              f"{len(DRYRUN_BYTES)}:\n{text[-3000:]}")
     res = {"phase": "dryrun", "arch": DRYRUN_ARCH, "wall_s": wall,
            "cases_s": sum(r["seconds"] for r in rows), "cases": rows}
+    emit(res)
+    return res
+
+
+# -------------------------------------------------------------------------- lint
+def phase_lint() -> dict:
+    """tentlint's strict run over its default paths, its reading of the
+    CUDA builds against the libraries this run loaded, and one scenario
+    under the runtime sanitizer. Any active finding, stale baseline entry,
+    parse error, flag difference or sanitizer violation raises."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "tentlint.json"
+        rc = tentlint.main(["--root", str(ROOT), "--strict", "--json", str(out)])
+        report = json.loads(out.read_text())
+    if rc != 0:
+        active = [f"{f['path']}:{f['line']}: [{f['rule']}] {f['message']}"
+                  for f in report["findings"] if not (f["suppressed"] or f["baselined"])]
+        raise AssertionError(f"tentlint --strict exited {rc}: {active}, stale baseline "
+                             f"{report['stale_baseline']}, parse errors {report['parse_errors']}")
+    static = cuda_builds(Project(ROOT, iter_source_files([ROOT / "src" / "repro_torch"], ROOT)))
+    loaded = loaded_builds()
+    if sorted(loaded) != sorted(LINT_LIBRARIES):
+        raise AssertionError(f"this run loaded {sorted(loaded)}, expected {sorted(LINT_LIBRARIES)}")
+    if static != loaded:
+        raise AssertionError(f"tentlint reads the CUDA builds as {static}; this run loaded {loaded}")
+    with sanitized():
+        flap = ScenarioRunner(get(SANITIZED_SCENARIO)).run()
+    if flap.violations:
+        raise AssertionError(f"{SANITIZED_SCENARIO} under the sanitizer: {flap.violations}")
+    res = {"phase": "lint", "files": report["counts"]["files_scanned"],
+           "counts": {k: report["counts"][k] for k in ("active", "suppressed", "baselined")},
+           "stale_baseline": len(report["stale_baseline"]),
+           "parse_errors": len(report["parse_errors"]),
+           "libraries_compared": {name: {"sources": list(src), "flags": list(flags)}
+                                  for name, (src, flags) in sorted(loaded.items())},
+           "sanitized": {"scenario": SANITIZED_SCENARIO, "violations": flap.violations},
+           "wall_s": time.perf_counter() - t0}
     emit(res)
     return res
 
@@ -2741,6 +2796,7 @@ def main() -> int:
     jit = finish_jit_core(jit_checks)
     mc = finish_mc_sweep(mc_state)
     phase_dryrun()
+    phase_lint()
     for name in ("tent_choose_wave_padded", "tent_on_complete_many"):
         launches[name]["engage_transfer"] = jit["main_path_launches"][name]
     launches["spray_sim"]["mc_sweep"] = mc["main_path_launches"]["spray_sim"]

@@ -10,6 +10,7 @@
     python3 kernel_probe.py families         # the MoE and enc-dec serve phases, flash at their shapes
     python3 kernel_probe.py training         # the train and rl_update phases alone
     python3 kernel_probe.py sharded          # qwen3-moe f32 served, then the sharded and dryrun phases
+    python3 kernel_probe.py lint             # the five libraries built, then the lint phase
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -39,7 +40,11 @@ seamless-m4t-medium serve phases with their profiles, and `moe_layer`.
 its rl_update phase (the trained checkpoint through TENT to 16 ranks and a
 flash prefill on it) alone. `sharded` serves qwen3-moe-235b-a22b in f32 at
 depth 2 (`chip_smoke.py`'s serve phase), then runs its sharded phase on
-that model under the host mesh and the dryrun phase.
+that model under the host mesh and the dryrun phase. `lint` builds and
+loads the five kernel libraries (`chip_smoke.py`'s env phase), then runs
+its lint phase: tentlint --strict over the port's tree, the flags the rule
+reads against those the libraries were built with, and a scenario under
+the runtime sanitizer.
 """
 from __future__ import annotations
 
@@ -345,6 +350,15 @@ def sharded() -> int:
     return 0
 
 
+
+def lint() -> int:
+    import chip_smoke as cs
+
+    cs.phase_env()
+    cs.phase_lint()
+    return 0
+
+
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "build":
@@ -363,5 +377,7 @@ if __name__ == "__main__":
         sys.exit(training())
     if mode == "sharded":
         sys.exit(sharded())
+    if mode == "lint":
+        sys.exit(lint())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

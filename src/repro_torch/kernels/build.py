@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -23,6 +23,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# library name -> (sources, the full nvcc flag list) of each library loaded
+_builds: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {}
 
 
 def _nvcc() -> str:
@@ -71,4 +73,14 @@ def load_library(name: str, sources: Sequence[str],
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     _loaded[key] = lib
+    _builds[name] = (tuple(sources), (*NVCC_FLAGS, *extra_flags))
     return lib
+
+
+def loaded_builds() -> Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]]:
+    """`{name: (sources, flags)}` of every library loaded in this process,
+    the flags those of the nvcc command that built it (`NVCC_FLAGS`, then
+    the library's own; a build found on disk was made with them, as its
+    name hashes them): the dynamic counterpart of tentlint's
+    `rules.cuda_builds`, which reads them from the source."""
+    return dict(_builds)

@@ -27,6 +27,7 @@ import torch
 from ..build import load_library
 from .ref import kv_pack_ref, kv_unpack_ref
 
+#: Entry point -> its plain version (tentlint's twin-drift rule reads this).
 __torch_twins__ = {"kv_pack": kv_pack_ref, "kv_unpack": kv_unpack_ref}
 
 #: Kernel launches since the counts were last set to 0, one count a kernel.

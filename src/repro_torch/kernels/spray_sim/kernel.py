@@ -26,7 +26,12 @@ import torch
 from ..build import load_library
 from .ref import spray_sim_ref
 
-__torch_twins__ = {"spray_sim": spray_sim_ref}
+#: Entry point -> its plain version; a (twin, reason) pair waives the match
+#: of parameter names (tentlint's twin-drift rule reads this).
+__torch_twins__ = {"spray_sim": (
+    spray_sim_ref,
+    "the launch takes the draws split into four card tensors and the policy as a "
+    "round_robin flag; the twin takes the draws dict, the policy name and a device")}
 
 #: Kernel launches since the count was last set to 0.
 launches = 0

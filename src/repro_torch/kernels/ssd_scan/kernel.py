@@ -62,7 +62,12 @@ import torch
 from ..build import load_library
 from .ref import ssd_scan_ref
 
-__torch_twins__ = {"ssd_scan": ssd_scan_ref}
+#: Entry point -> its plain version; a (twin, reason) pair waives the match
+#: of parameter names (tentlint's twin-drift rule reads this).
+__torch_twins__ = {"ssd_scan": (
+    ssd_scan_ref,
+    "the launch takes the chunk length and whether to count the launch; the plain "
+    "scan is one pass over the sequence")}
 
 #: Calls that launched the kernels, since the count was last set to 0.
 launches = 0

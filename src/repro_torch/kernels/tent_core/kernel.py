@@ -30,8 +30,18 @@ import torch
 from ..build import load_library
 from .ref import tent_choose_wave_padded_ref, tent_on_complete_many_ref
 
-__torch_twins__ = {"tent_choose_wave_padded": tent_choose_wave_padded_ref,
-                   "tent_on_complete_many": tent_on_complete_many_ref}
+#: Entry point -> its plain version; a (twin, reason) pair waives the match
+#: of parameter names (tentlint's twin-drift rule reads this).
+__torch_twins__ = {
+    "choose_wave_padded": (
+        tent_choose_wave_padded_ref,
+        "the launch reads one packed buffer of doubles and writes another, sized by the "
+        "padded counts pc and ps; the twin takes the padded arrays"),
+    "complete_many": (
+        tent_on_complete_many_ref,
+        "the launch updates a packed state buffer in place from a packed batch, its first "
+        "m of pm entries live; the twin takes the state and batch arrays"),
+}
 
 #: Kernel launches since the counts were last set to 0, one count a kernel.
 choose_launches = 0

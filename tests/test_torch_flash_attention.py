@@ -135,7 +135,9 @@ def test_kernel_entry_refuses_cpu_tensors():
 
 
 def test_twin_registry_names_the_plain_version():
-    assert fa_kernel.__torch_twins__ == {"flash_attention": flash_attention_ref}
+    (twin, reason), = fa_kernel.__torch_twins__.values()
+    assert list(fa_kernel.__torch_twins__) == ["flash_attention"]
+    assert twin is flash_attention_ref and "block_q" in reason
 
 
 @pytest.mark.parametrize("B,S,H,K,D,window",

@@ -60,6 +60,12 @@ LAUNCH_MODULES = [
     "repro_torch.launch.roofline", "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
 ]
 
+# tentlint: the linter reads the port's sources and imports none of them
+ANALYSIS_MODULES = [
+    "repro_torch.analysis.core", "repro_torch.analysis.rules", "repro_torch.analysis.lint",
+    "repro_torch.analysis.baseline", "repro_torch.analysis.sanitize",
+]
+
 
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,7 +74,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert proc.returncode == 0, proc.stderr
     seen = json.loads(proc.stdout.strip().splitlines()[-1])
     assert seen["n"] >= 30  # every module of the package was imported
-    assert set(ENGINE_MODULES + TRAINING_MODULES + LAUNCH_MODULES) <= set(seen["mods"])
+    assert set(ENGINE_MODULES + TRAINING_MODULES + LAUNCH_MODULES
+               + ANALYSIS_MODULES) <= set(seen["mods"])
     assert seen["bad"] == [], f"repro_torch pulled in: {seen['bad']}"
     assert seen["group"] is False, "importing the port created a process group"
     assert seen["env_changed"] == [], f"importing the port set {seen['env_changed']}"

@@ -235,7 +235,9 @@ def test_kernel_entry_refuses_cpu_tensors():
 
 
 def test_twin_registry_names_the_plain_version():
-    assert ssd_kernel.__torch_twins__ == {"ssd_scan": ssd_scan_ref}
+    (twin, reason), = ssd_kernel.__torch_twins__.values()
+    assert list(ssd_kernel.__torch_twins__) == ["ssd_scan"]
+    assert twin is ssd_scan_ref and "chunk" in reason
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
