@@ -99,12 +99,15 @@ class NoWallClock(Rule):
     FORBIDDEN_SUFFIXES = ("datetime.now", "datetime.utcnow", "date.today")
 
     # Modules whose purpose is wall-clock measurement (never on a simulated
-    # path): the real-training step timer and the dry run's timer, named
-    # below the source prefix so that one list judges either package.
+    # path): the real-training step timer, the dry run's timer and the
+    # host-clock span recorder (its readings feed nothing the simulation
+    # reads; engine sites reach the clock only through it), named below the
+    # source prefix so that one list judges either package.
     # `sanitize.DYNAMIC_ALLOWLIST` is the same list as module names.
     ALLOWED_FILES = {
         "training/train_loop.py",
         "launch/dryrun.py",
+        "obs/spans.py",
     }
 
     def check_file(self, ctx: FileContext, project: Project):

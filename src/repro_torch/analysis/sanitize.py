@@ -45,6 +45,7 @@ class SanitizerError(RuntimeError):
 DYNAMIC_ALLOWLIST = frozenset({
     "repro_torch.training.train_loop",
     "repro_torch.launch.dryrun",
+    "repro_torch.obs.spans",
 })
 
 _ENV_VAR = "REPRO_SANITIZE"

@@ -16,6 +16,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..obs import events as OBS
+from ..obs import spans as _spans
 from ..analysis import hot_path
 from .fabric import Fabric, FabricConfig
 from .plan import Orchestrator, Stage, StageCandidates, TransportPlan, build_stage_candidates
@@ -249,8 +250,6 @@ class TentEngine:
         self._post_buffer: Optional[list] = None
         self._cb_batches = 0  # live batches with registered done-callbacks
         # observability
-        self.slice_latencies: List[float] = []
-        self.transfer_records: List[BatchResult] = []
         self.slices_retried = 0
         self.backend_substitutions = 0
         self.slices_issued = 0
@@ -338,6 +337,12 @@ class TentEngine:
         transfers: Sequence[Tuple[int, int, int, int, int]],
     ) -> None:
         """transfers: (src_segment, src_offset, dst_segment, dst_offset, length)."""
+        with _spans.span("engine.submit"):
+            self._submit(batch_id, transfers)
+
+    def _submit(self, batch_id: int,
+                transfers: Sequence[Tuple[int, int, int, int, int]]) -> None:
+        """Plan, decompose and dispatch the first wave of `submit_transfer`."""
         bc = self._batches[batch_id]
         if bc.state not in (BatchState.OPEN, BatchState.SUBMITTED):
             raise TentError("BatchClosed", f"batch {batch_id} is {bc.state}")
@@ -399,16 +404,18 @@ class TentEngine:
     def wait(self, batch_id: int, *, max_events: int = 50_000_000) -> BatchResult:
         bc = self._batches[batch_id]
         n = 0
-        while bc.state == BatchState.SUBMITTED:
-            if not self.fabric.step():
-                raise TentError("Stalled", f"batch {batch_id} stuck with no events")
-            n += 1
-            if n > max_events:
-                raise TentError("Livelock", f"batch {batch_id} exceeded event budget")
+        with _spans.span("engine.run"):
+            while bc.state == BatchState.SUBMITTED:
+                if not self.fabric.step():
+                    raise TentError("Stalled", f"batch {batch_id} stuck with no events")
+                n += 1
+                if n > max_events:
+                    raise TentError("Livelock", f"batch {batch_id} exceeded event budget")
         return self._result(bc)
 
     def run_until_idle(self) -> None:
-        self.fabric.run_until_idle()
+        with _spans.span("engine.run"):
+            self.fabric.run_until_idle()
 
     def transfer_sync(self, src: int, soff: int, dst: int, doff: int, length: int) -> BatchResult:
         b = self.allocate_batch()
@@ -428,6 +435,20 @@ class TentEngine:
     # ------------------------------------------------------------- dispatch
     @hot_path
     def _dispatch(self) -> None:
+        """`_dispatch_pending` when there is work to issue; with spans on,
+        its time is a `dispatch_ns` accumulator."""
+        if not self._pending or self._inflight >= self.config.max_inflight:
+            return
+        rec = _spans.active
+        if rec is None:
+            self._dispatch_pending()
+            return
+        t0 = rec.begin()
+        self._dispatch_pending()
+        rec.end(t0, "dispatch_ns", "dispatch_n", 1)
+
+    @hot_path
+    def _dispatch_pending(self) -> None:
         """Drain the pending ring into the fabric, a wave at a time.
 
         Pops up to the worker-ring headroom worth of slices, groups
@@ -742,9 +763,14 @@ class TentEngine:
                       t1: float, err: str) -> None:
         """Shared tagged completion for every posted slice (wave or scalar):
         the fabric hands the `_InflightSlice` back, so posting needs no
-        per-slice closure."""
+        per-slice closure. With spans on, its time is a `drain_ns`
+        accumulator."""
+        rec = _spans.active
+        t0 = rec.begin() if rec is not None else 0
         self.completions_drained += 1
         self._on_wire_complete(tag, ok, t1, err)
+        if rec is not None:
+            rec.end(t0, "drain_ns", "drain_n", 1)
 
     # ----------------------------------------------------------- completion
     def _on_wire_complete(self, inf: _InflightSlice, ok: bool, t_end: float, err: str) -> None:
@@ -840,7 +866,10 @@ class TentEngine:
         else (staged-hop continuations, a non-empty pending ring, app
         callbacks that may submit new work mid-batch) falls back to the
         scalar per-item sequence, so the two drains stay bit-identical
-        (pinned in tests/test_complete_parity.py)."""
+        (pinned in tests/test_complete_parity.py). With spans on, its time
+        is a `drain_ns` accumulator."""
+        rec = _spans.active
+        t0 = rec.begin() if rec is not None else 0
         n = len(ops)
         self.completions_drained += n
         self.completion_batches += 1
@@ -918,6 +947,8 @@ class TentEngine:
             else:
                 self._drain_success_run(run, now)
             i = j
+        if rec is not None:
+            rec.end(t0, "drain_ns", "drain_n", 1)
 
     @hot_path
 
@@ -1021,7 +1052,6 @@ class TentEngine:
             dst_seg.write(sl.dst_offset, src_seg.read(sl.src_offset, sl.length))
         sl.state = SliceState.DONE
         sl.completed_at = t_end
-        self.slice_latencies.append(t_end - sl.submitted_at)
         tcb.remaining -= 1
         bc = self._batches[tcb.batch_id]
         bc.remaining_slices -= 1
@@ -1036,7 +1066,6 @@ class TentEngine:
         self._open_work -= 1
         if bc.callbacks:
             self._cb_batches -= 1
-        self.transfer_records.append(self._result(bc))
         rec = self._rec
         if rec is not None:
             rec.append(OBS.BATCH_DONE, t_end, {
@@ -1146,11 +1175,6 @@ class TentEngine:
                 out["batches_open"] += 1
                 out["slices_outstanding"] += bc.remaining_slices
         return out
-
-    def percentile_latency(self, q: float) -> float:
-        if not self.slice_latencies:
-            return 0.0
-        return float(np.percentile(np.asarray(self.slice_latencies), q))
 
     def bytes_by_link(self) -> Dict[int, int]:
         return self.fabric.bytes_by_link()

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import spans as _spans
 from .types import Location, MemoryKind
 
 _segment_ids = itertools.count(1)
@@ -64,11 +65,15 @@ class Segment:
         return sum(b.length for b in self.buffers)
 
     # -- byte access (used by transport backends only; the core engine and
-    # applications never touch raw bytes) ----------------------------------
+    # applications never touch raw bytes). On materialized segments these
+    # are where the bytes move, one call a slice: with spans on, each is a
+    # `copy_ns` / `copy_bytes` accumulator (repro_torch.obs.spans) ----------
     def read(self, offset: int, length: int) -> np.ndarray:
         self._check_range(offset, length)
         if self.phantom:
             return np.zeros(length, dtype=np.uint8)
+        rec = _spans.active
+        t0 = rec.begin() if rec is not None else 0
         out = np.empty(length, dtype=np.uint8)
         done = 0
         for buf in self.buffers:
@@ -78,6 +83,8 @@ class Segment:
                 out[lo - offset : hi - offset] = buf.data[lo - buf.start : hi - buf.start]
                 done += hi - lo
         assert done == length
+        if rec is not None:
+            rec.end(t0, "copy_ns", "copy_bytes", length)
         return out
 
     def write(self, offset: int, payload: np.ndarray) -> None:
@@ -85,11 +92,15 @@ class Segment:
         self._check_range(offset, length)
         if self.phantom:
             return
+        rec = _spans.active
+        t0 = rec.begin() if rec is not None else 0
         for buf in self.buffers:
             lo = max(offset, buf.start)
             hi = min(offset + length, buf.start + buf.length)
             if lo < hi:
                 buf.data[lo - buf.start : hi - buf.start] = payload[lo - offset : hi - offset]
+        if rec is not None:
+            rec.end(t0, "copy_ns", "copy_bytes", length)
 
     def _check_range(self, offset: int, length: int) -> None:
         if offset < 0 or offset + length > self.length:
@@ -149,6 +160,10 @@ class SegmentManager:
 
     def deregister(self, segment_id: int) -> None:
         self._segments.pop(segment_id, None)
+
+    def live(self) -> Tuple[int, int]:
+        """(segments registered, their summed length in bytes), counted now."""
+        return len(self._segments), sum(s.length for s in self._segments.values())
 
     def get(self, segment_id: int) -> Segment:
         try:

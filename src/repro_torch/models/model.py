@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
+from ..obs import spans as _spans
 from ..sharding.ctx import constrain, hold_layout, split_dim
 from .attention import attend_cached, attend_cross, attend_full, cache_update, prefill_attention
 from .common import (apply_rope, cross_entropy, dense_init, embed_init, rms_norm,
@@ -438,6 +439,13 @@ def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     conv-1, conv_dim) for Mamba2 layers; "enc_k", "enc_v" (L, B, S_enc,
     K, Hd), the cross-attention K/V over the encoder's output, for
     enc-dec (which needs enc_frames)."""
+    with _spans.span("model.prefill"):
+        return _prefill_forward(cfg, params, tokens, enc_frames)
+
+
+def _prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                     enc_frames: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S = tokens.shape
     x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device)
@@ -509,7 +517,13 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
     position `pos`. Writes the new K/V, conv buffers and SSM states into
     `cache` in place and returns (logits (B, V) fp32, cache). MoE layers
     route the B tokens with the capacity of T = B."""
-    pos = int(pos)
+    with _spans.span("model.decode_step"):
+        return _decode_step(cfg, params, cache, token, int(pos))
+
+
+def _decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
+                 token: torch.Tensor, pos: int
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x = _embed(params, token)
     positions = torch.full((1,), pos, device=x.device)
     lp = params["layers"]

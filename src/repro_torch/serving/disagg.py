@@ -21,6 +21,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import Location, MemoryKind, TentEngine
 from ..models import decode_step, prefill
+from ..obs import spans as _spans
 
 
 def _leaves(tree: Any) -> List[torch.Tensor]:
@@ -43,24 +44,32 @@ def tree_to_bytes(tree: Any) -> Tuple[np.ndarray, List[Tuple[tuple, str]]]:
     """Flatten a (nested dict) tree of tensors into one uint8 host array
     plus (shape, dtype name) metas. Leaves are joined on their own device
     and cross to the host in one copy."""
-    leaves = _leaves(tree)
-    metas = [(tuple(t.shape), _dtype_name(t.dtype)) for t in leaves]
-    if not leaves:
-        return np.zeros(0, np.uint8), metas
-    blobs = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in leaves]
-    return torch.cat(blobs).cpu().numpy(), metas
+    with _spans.span("serving.pack"):
+        leaves = _leaves(tree)
+        metas = [(tuple(t.shape), _dtype_name(t.dtype)) for t in leaves]
+        if not leaves:
+            return np.zeros(0, np.uint8), metas
+        blobs = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in leaves]
+        return torch.cat(blobs).cpu().numpy(), metas
 
 
 def bytes_to_tree(data: np.ndarray, like: Any) -> Any:
-    """Inverse of `tree_to_bytes`: shapes, dtypes and devices from `like`."""
-    out = []
-    off = 0
-    for t in _leaves(like):
-        nbytes = t.element_size() * t.numel()
-        raw = torch.from_numpy(np.array(data[off:off + nbytes], dtype=np.uint8))
-        out.append(raw.to(t.device).view(t.dtype).reshape(t.shape))
-        off += nbytes
-    return _unflatten(like, out)
+    """Inverse of `tree_to_bytes`: shapes, dtypes and devices from `like`.
+    Each leaf's bytes are copied on the host before they cross to its
+    device; with spans on, those copies are `copy_ns` / `copy_bytes`."""
+    rec = _spans.active
+    with _spans.span("serving.unpack"):
+        out = []
+        off = 0
+        for t in _leaves(like):
+            nbytes = t.element_size() * t.numel()
+            t0 = rec.begin() if rec is not None else 0
+            leaf = np.array(data[off:off + nbytes], dtype=np.uint8)
+            if rec is not None:
+                rec.end(t0, "copy_ns", "copy_bytes", nbytes)
+            out.append(torch.from_numpy(leaf).to(t.device).view(t.dtype).reshape(t.shape))
+            off += nbytes
+        return _unflatten(like, out)
 
 
 def greedy_decode(cfg: ModelConfig, params: Any, cache: Any,
@@ -99,17 +108,28 @@ class DisaggregatedServer:
         self._loc_d = Location(node=decode_node, kind=MemoryKind.DEVICE_HBM, device=0,
                                numa=spec.node.gpu_numa(0))
 
+    def _stage_in(self, data: np.ndarray) -> Tuple[Any, Any]:
+        """Register the handoff's source and destination segments and copy
+        the cache's bytes into the source: (src, dst)."""
+        nbytes = max(data.size, 1)
+        eng = self.engine
+        with _spans.span("serving.register") as sp:
+            src = eng.register_segment(self._loc_p, nbytes, name="kv-src")
+            dst = eng.register_segment(self._loc_d, nbytes, name="kv-dst")
+        if sp is not None:
+            sp.counters["segments_live"], sp.counters["segment_bytes_live"] = eng.segments.live()
+        with _spans.span("serving.stage_in"):
+            src.write(0, data)
+        return src, dst
+
     def ship_kv_async(self, data: np.ndarray, on_done=None) -> Tuple[Any, int]:
         """Declarative KV-handoff intent: post the prefill->decode elephant
         flow as one async TENT batch and return (dst_segment, batch_id)
         immediately; the decode side is woken by the completion callback."""
-        nbytes = max(data.size, 1)
-        src = self.engine.register_segment(self._loc_p, nbytes, name="kv-src")
-        dst = self.engine.register_segment(self._loc_d, nbytes, name="kv-dst")
-        src.write(0, data)
+        src, dst = self._stage_in(data)
         batch = self.engine.allocate_batch()
         self.engine.submit_transfer(
-            batch, [(src.segment_id, 0, dst.segment_id, 0, nbytes)])
+            batch, [(src.segment_id, 0, dst.segment_id, 0, src.length)])
         if on_done is not None:
             self.engine.on_batch_done(batch, on_done)
         return dst, batch
@@ -119,6 +139,10 @@ class DisaggregatedServer:
                  *, async_handoff: bool = False) -> DisaggResult:
         """enc_frames (B, S_enc, D): the encoder's input, enc-dec only; its
         cross-attention K/V ride in the shipped cache."""
+        with _spans.request():
+            return self._generate(prompt, n_new, max_len, enc_frames, async_handoff)
+
+    def _generate(self, prompt, n_new, max_len, enc_frames, async_handoff) -> DisaggResult:
         B, S = prompt.shape
         # ---- prefill pool ----
         last_logits, cache = prefill(self.cfg, self.params, prompt, max_len,
@@ -136,14 +160,16 @@ class DisaggregatedServer:
             self.engine.run_until_idle()
             res = done["res"]
         else:
-            src = self.engine.register_segment(self._loc_p, max(data.size, 1), name="kv-src")
-            dst = self.engine.register_segment(self._loc_d, max(data.size, 1), name="kv-dst")
-            src.write(0, data)
-            res = self.engine.transfer_sync(src.segment_id, 0, dst.segment_id, 0, max(data.size, 1))
+            src, dst = self._stage_in(data)
+            res = self.engine.transfer_sync(src.segment_id, 0, dst.segment_id, 0, src.length)
         if not res.ok:
             raise RuntimeError(f"KV handoff failed: {res.error}")
         secs = self.engine.fabric.now - t0
         cache = bytes_to_tree(dst.read(0, data.size), cache)
+        rec = _spans.active
+        if rec is not None:
+            # the decode worker holds the cache; prefill's logits give token one
+            rec.mark("serving.first_token")
         # ---- decode pool ----
         tokens = greedy_decode(self.cfg, self.params, cache, last_logits, S, n_new)
         return DisaggResult(tokens=tokens, kv_transfer_seconds=secs, kv_bytes=int(data.size))

@@ -1,0 +1,226 @@
+"""The port's host-clock span recorder (`repro_torch.obs.spans`) on the
+serving path, on the CPU at smoke sizes.
+
+Each test pins one fact: spans nest under their request; the recorder
+moves no byte and changes no result or counter of the engine; the slices'
+copies inside the engine's event loop are twice the bytes shipped, and a
+served request copies five times what it ships; accumulators are
+exclusive; the segments registered are counted; ranges open only under a
+profiler; and with nothing attached every site does nothing.
+"""
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import TentEngine
+from repro_torch.models import init_params
+from repro_torch.obs import spans
+from repro_torch.scenarios import get
+from repro_torch.serving import DisaggregatedServer, bytes_to_tree, greedy_decode
+
+KV_BYTES = 16 << 20  # 256 slices of 64 KiB
+COUNTERS = ("waves", "slices_issued", "slices_retried", "completions_drained",
+            "completion_batches", "backend_substitutions")
+
+
+@pytest.fixture
+def recorder():
+    rec = spans.attach()
+    yield rec
+    spans.detach()
+
+
+def _engine() -> TentEngine:
+    """The engine the serving benchmark builds: the PD-disaggregation
+    scenario's fabric and engine, policy tent."""
+    spec = get("disagg_prefill_decode")
+    return TentEngine(spec.topology.to_fabric_spec(),
+                      config=spec.engine.to_engine_config("tent"), seed=spec.seed)
+
+
+def _handoff(eng: TentEngine, data: np.ndarray, flap: bool = True):
+    """One KV handoff through `ship_kv_async` and the event loop, rail (0, 1)
+    failing while it runs: (destination bytes, BatchResult)."""
+    if flap:
+        v0 = eng.fabric.now
+        eng.fabric.schedule_failure(eng.topology.rdma_nic(0, 1).link_id,
+                                    at=v0 + 2e-4, recover_at=v0 + 2e-3)
+    server = DisaggregatedServer(eng, None, None)
+    done = {}
+    dst, _ = server.ship_kv_async(data, lambda res: done.setdefault("res", res))
+    eng.run_until_idle()
+    return dst.read(0, data.size), done["res"]
+
+
+def _data(seed: int = 3) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, KV_BYTES, dtype=np.uint8)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    cfg = get_smoke_config("qwen2-0.5b").with_(remat="none")
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
+    prompt = torch.from_numpy(
+        np.random.default_rng(11).integers(0, cfg.vocab_size, (1, 12), dtype=np.int64))
+    return cfg, params, prompt
+
+
+def test_off_by_default_every_site_is_a_null_context():
+    assert spans.active is None
+    for ctx in (spans.span("serving.pack"), spans.request()):
+        with ctx as sp:
+            assert sp is None
+
+
+@pytest.mark.parametrize("flap", [False, True], ids=["steady", "flap"])
+def test_recorder_moves_the_same_bytes_and_leaves_results_and_counters(flap):
+    data = _data()
+    runs = []
+    for attached in (False, True):
+        eng = _engine()
+        if attached:
+            spans.attach()
+        try:
+            got, res = _handoff(eng, data, flap)
+        finally:
+            spans.detach()
+        runs.append((got, (res.ok, res.submitted_at, res.completed_at, res.bytes, res.error),
+                     {c: getattr(eng, c) for c in COUNTERS}))
+    (got0, res0, cnt0), (got1, res1, cnt1) = runs
+    assert np.array_equal(got0, data) and np.array_equal(got1, data)
+    assert res0 == res1 and res0[0]
+    assert cnt0 == cnt1
+    assert cnt0["slices_retried"] > 0 if flap else cnt0["slices_retried"] == 0
+
+
+def test_engine_run_copies_exactly_twice_the_bytes_shipped(recorder):
+    data = _data()
+    with recorder.request(keep=True) as root:
+        _handoff(_engine(), data)
+    by_name = {s.name: s for s in recorder.take(root.request)}
+    assert by_name["engine.run"].counters["copy_bytes"] == 2 * data.size
+    assert by_name["serving.stage_in"].counters["copy_bytes"] == data.size
+    assert "copy_bytes" not in by_name["engine.submit"].counters
+
+
+def test_accumulators_are_exclusive(recorder):
+    """A drain's nanoseconds leave out the dispatches and copies inside it,
+    so the engine loop's parts never exceed the loop; and a nested
+    accumulator is subtracted from the one around it."""
+    with recorder.request(keep=True) as root:
+        _handoff(_engine(), _data())
+        with recorder.span("outer") as outer:
+            t0 = recorder.begin()
+            t1 = recorder.begin()
+            recorder.end(t1, "inner_ns", "inner_n", 1)
+            recorder.end(t0, "outer_ns", "outer_n", 1)
+    got = {s.name: s for s in recorder.take(root.request)}
+    run, submit = got["engine.run"], got["engine.submit"]
+    parts = [run.counters.get(k, 0) for k in ("dispatch_ns", "drain_ns", "copy_ns")]
+    assert run.counters["drain_ns"] > 0 and run.counters["copy_ns"] > 0
+    assert sum(parts) <= run.ns
+    assert 0 < submit.counters["dispatch_ns"] <= submit.ns and submit.counters["dispatch_n"] == 1
+    c = outer.counters
+    assert c["inner_n"] == c["outer_n"] == 1
+    assert 0 <= c["outer_ns"] and c["inner_ns"] + c["outer_ns"] <= outer.ns
+
+
+def test_a_served_request_nests_every_span_under_its_id(recorder, smoke):
+    """`generate` inside a kept request is part of it: one root, one id."""
+    cfg, params, prompt = smoke
+    server = DisaggregatedServer(_engine(), cfg, params)
+    with recorder.request(keep=True) as first:
+        server.generate(prompt, 3, 16, async_handoff=True)
+    with recorder.request(keep=True) as second:
+        server.generate(prompt, 3, 16, async_handoff=True)
+    got = recorder.take(first.request)
+    assert second.request != first.request and recorder.take(second.request)
+    root = got[0]
+    assert root is first and root.name == spans.REQUEST and root.parent == 0
+    assert [s.name for s in got].count(spans.REQUEST) == 1
+    by_id = {s.id: s for s in got}
+    for s in got[1:]:
+        assert s.request == root.request
+        parent = by_id[s.parent]
+        assert parent.start <= s.start <= s.end <= parent.end, (s, parent)
+    names = [s.name for s in got]
+    assert {"serving.pack", "serving.register", "serving.stage_in", "engine.submit",
+            "engine.run", "serving.unpack", "serving.first_token"} <= set(names)
+    # the replayed prefill's 12 steps, then the 2 decode steps
+    assert names.count("model.decode_step") == 12 + 2
+    mark = got[names.index("serving.first_token")]
+    assert mark.ns == 0 and mark.start >= got[names.index("serving.unpack")].end
+
+
+def test_a_served_request_copies_five_times_what_it_ships(recorder, smoke):
+    """Stage-in, each slice's read and write, the read-out and
+    `bytes_to_tree`'s leaves: five host copies of the cache."""
+    cfg, params, prompt = smoke
+    server = DisaggregatedServer(_engine(), cfg, params)
+    with recorder.request(keep=True) as root:
+        res = server.generate(prompt, 3, 16, async_handoff=True)
+    got = recorder.take(root.request)
+    copied = sum(s.counters.get("copy_bytes", 0) for s in got)
+    assert copied == 5 * res.kv_bytes
+    unpack = next(s for s in got if s.name == "serving.unpack")
+    assert unpack.counters["copy_bytes"] == res.kv_bytes
+
+
+def test_a_recorder_left_attached_holds_nothing_it_was_not_asked_to_keep(recorder, smoke):
+    """`generate`'s own request, spans outside any request and a request
+    whose spans were taken leave nothing in the recorder."""
+    cfg, params, prompt = smoke
+    server = DisaggregatedServer(_engine(), cfg, params)
+    server.generate(prompt, 3, 16, async_handoff=True)
+    with recorder.span("outside"):
+        recorder.mark("serving.first_token")
+    with recorder.request(keep=True) as root:
+        server.generate(prompt, 3, 16, async_handoff=True)
+    assert list(recorder._kept) == [root.request]
+    assert recorder.take(root.request) and recorder._kept == {}
+    assert recorder._open == [] and recorder._saved == []
+
+
+def test_register_counts_the_segments_left_registered(recorder):
+    eng = _engine()
+    data = _data()
+    for _ in range(2):
+        with recorder.request(keep=True) as root:
+            _handoff(eng, data, flap=False)
+        reg = next(s for s in recorder.take(root.request) if s.name == "serving.register")
+    assert reg.counters == {"segments_live": 4, "segment_bytes_live": 4 * data.size}
+    seg = eng.segments.all_segments()[0]
+    eng.segments.deregister(seg.segment_id)
+    assert eng.segments.live() == (3, 3 * data.size)
+
+
+def test_decode_steps_each_open_a_span(recorder, smoke):
+    cfg, params, prompt = smoke
+    from repro_torch.models import prefill_forward
+
+    with recorder.request(keep=True) as root:
+        logits, kv = prefill_forward(cfg, params, prompt)
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4)) for k, v in kv.items()}
+        greedy_decode(cfg, params, cache, logits, prompt.shape[1], 4)
+    names = [s.name for s in recorder.take(root.request)]
+    assert names == [spans.REQUEST, "model.prefill"] + ["model.decode_step"] * 3
+
+
+def test_ranges_open_only_under_a_profiler(recorder, smoke):
+    """Spans become `tent.*` ranges while a profiler records; marks and
+    accumulators open none."""
+    cfg, params, prompt = smoke
+    data = _data()[: 1 << 20]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with recorder.request():
+            _handoff(_engine(), data, flap=False)
+            recorder.mark("serving.first_token")
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    tent = sorted(n for n in names if n.startswith(spans.RANGE_PREFIX))
+    assert tent == sorted("tent." + n for n in (
+        spans.REQUEST, "serving.register", "serving.stage_in", "engine.submit", "engine.run"))
+    with recorder.request(keep=True) as root:
+        bytes_to_tree(data, {"k": torch.zeros(data.size, dtype=torch.uint8)})
+    assert all(s._range is None for s in recorder.take(root.request))
