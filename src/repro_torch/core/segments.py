@@ -102,12 +102,32 @@ class Segment:
         if rec is not None:
             rec.end(t0, "copy_ns", "copy_bytes", length)
 
+    def view(self) -> "Segment":
+        """A second `Segment` over the same buffers, held by no registry and
+        no engine: it stays readable after `drop_bytes`."""
+        return dataclasses.replace(self, buffers=list(self.buffers))
+
+    def drop_bytes(self) -> None:
+        """Let go of the buffers once the segment is deregistered, so that
+        holding it (as an engine's record of a finished batch does) holds no
+        memory. It keeps its length as a phantom: a late slice of a failed
+        batch reads zeros from it and writes nothing to it."""
+        self.phantom_length = self.length
+        self.buffers = []
+
     def _check_range(self, offset: int, length: int) -> None:
         if offset < 0 or offset + length > self.length:
             raise IndexError(
                 f"segment {self.segment_id}: range [{offset}, {offset + length}) "
                 f"out of bounds (len={self.length})"
             )
+
+
+def adoptable(data: np.ndarray, length: int) -> bool:
+    """Whether `SegmentManager.register` can take `data` in place as a
+    segment of `length` bytes."""
+    return (isinstance(data, np.ndarray) and data.dtype == np.uint8 and data.ndim == 1
+            and data.size == length and data.flags.c_contiguous)
 
 
 class SegmentManager:
@@ -131,12 +151,26 @@ class SegmentManager:
         n_buffers: int = 1,
         init: Optional[np.ndarray] = None,
         materialize: bool = True,
+        buffer: Optional[np.ndarray] = None,
     ) -> Segment:
+        """`buffer`, a 1-D C-contiguous uint8 array of `length` bytes, is
+        registered in place as the segment's one buffer: nothing is
+        allocated or copied, and the segment's bytes are the array's."""
         if length <= 0:
             raise ValueError("segment length must be positive")
         if n_buffers < 1 or n_buffers > length:
             raise ValueError("bad buffer count")
+        if buffer is not None:
+            if init is not None or n_buffers != 1 or not materialize:
+                raise ValueError("buffer excludes init, n_buffers > 1 and materialize=False")
+            if not adoptable(buffer, length):
+                raise ValueError(f"buffer must be a 1-D C-contiguous uint8 array of {length} bytes")
         seg_id = next(_segment_ids)
+        if buffer is not None:
+            seg = Segment(segment_id=seg_id, location=location,
+                          buffers=[Buffer(start=0, length=length, data=buffer)], name=name)
+            self._segments[seg_id] = seg
+            return seg
         if not materialize:
             seg = Segment(segment_id=seg_id, location=location, buffers=[],
                           name=name, phantom_length=length)

@@ -7,6 +7,16 @@ PD-disaggregation elephant flow); the decode worker then generates tokens.
 The engine is the host-side simulator, so the cache crosses to host memory
 as raw bytes and back onto the model's device after the transfer.
 
+On a card the bytes land by DMA in page-locked host memory from PyTorch's
+caching host allocator, which the handoff's source segment maps in place
+(paper §3.1: a segment maps the application's own buffers); the
+destination segment is the same kind of memory. Both segments are
+deregistered when the batch lands and let go of their bytes (the engine
+keeps its records of finished batches); the caller reads the destination
+through a view of its own. A block returns to the allocator once the last
+view of it is gone, so a server reuses already pinned, already touched
+pages from request to request.
+
 Byte streams match the reference's: leaves in `jax.tree_util` order (dict
 keys sorted), metas carrying numpy dtype names ("float32", "bfloat16").
 """
@@ -20,6 +30,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import Location, MemoryKind, TentEngine
+from ..core.segments import adoptable
 from ..models import decode_step, prefill
 from ..obs import spans as _spans
 
@@ -40,28 +51,57 @@ def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).removeprefix("torch.")
 
 
+def _pinned(n: int) -> torch.Tensor:
+    """`n` bytes of page-locked host memory; a block goes back to PyTorch's
+    caching host allocator, for the next request, once every view of it
+    (a segment's numpy array among them) is gone."""
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+
+# leaves unpacked on a card at byte offsets that are a multiple of this are
+# views of the one transferred buffer; any other offset is a device copy, so
+# every leaf starts where a vectorised kernel may load it
+_VIEW_ALIGN = 16
+
+
 def tree_to_bytes(tree: Any) -> Tuple[np.ndarray, List[Tuple[tuple, str]]]:
     """Flatten a (nested dict) tree of tensors into one uint8 host array
     plus (shape, dtype name) metas. Leaves are joined on their own device
-    and cross to the host in one copy."""
-    with _spans.span("serving.pack"):
+    and cross to the host in one copy: from a card, one DMA into pinned
+    memory (with spans on, `pinned_bytes`), whose array the caller holds."""
+    with _spans.span("serving.pack") as sp:
         leaves = _leaves(tree)
         metas = [(tuple(t.shape), _dtype_name(t.dtype)) for t in leaves]
         if not leaves:
             return np.zeros(0, np.uint8), metas
         blobs = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in leaves]
-        return torch.cat(blobs).cpu().numpy(), metas
+        flat = torch.cat(blobs)
+        if flat.device.type != "cuda":
+            return flat.cpu().numpy(), metas
+        host = _pinned(flat.numel())
+        host.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
+        if sp is not None:
+            sp.counters["pinned_bytes"] = host.numel()
+        return host.numpy(), metas
 
 
 def bytes_to_tree(data: np.ndarray, like: Any) -> Any:
     """Inverse of `tree_to_bytes`: shapes, dtypes and devices from `like`.
-    Each leaf's bytes are copied on the host before they cross to its
-    device; with spans on, those copies are `copy_ns` / `copy_bytes`."""
+    When every leaf of `like` is on one card, `data` crosses to it in one
+    transfer and each leaf is a view of its byte range there, with no host
+    copy. Otherwise each leaf's bytes are copied on the host before they
+    cross to its device; with spans on, those copies are `copy_ns` /
+    `copy_bytes`."""
     rec = _spans.active
     with _spans.span("serving.unpack"):
+        leaves = _leaves(like)
+        devices = {t.device for t in leaves}
+        if len(devices) == 1 and (device := devices.pop()).type == "cuda":
+            return _unflatten(like, _unpack_on_card(data, leaves, device))
         out = []
         off = 0
-        for t in _leaves(like):
+        for t in leaves:
             nbytes = t.element_size() * t.numel()
             t0 = rec.begin() if rec is not None else 0
             leaf = np.array(data[off:off + nbytes], dtype=np.uint8)
@@ -70,6 +110,21 @@ def bytes_to_tree(data: np.ndarray, like: Any) -> Any:
             out.append(torch.from_numpy(leaf).to(t.device).view(t.dtype).reshape(t.shape))
             off += nbytes
         return _unflatten(like, out)
+
+
+def _unpack_on_card(data: np.ndarray, leaves: List[torch.Tensor],
+                    device: torch.device) -> List[torch.Tensor]:
+    flat = torch.from_numpy(data).to(device)
+    out = []
+    off = 0
+    for t in leaves:
+        nbytes = t.element_size() * t.numel()
+        raw = flat[off:off + nbytes]
+        if off % _VIEW_ALIGN:
+            raw = raw.clone()
+        out.append(raw.view(t.dtype).reshape(t.shape))
+        off += nbytes
+    return out
 
 
 def greedy_decode(cfg: ModelConfig, params: Any, cache: Any,
@@ -107,32 +162,64 @@ class DisaggregatedServer:
                                numa=spec.node.gpu_numa(0))
         self._loc_d = Location(node=decode_node, kind=MemoryKind.DEVICE_HBM, device=0,
                                numa=spec.node.gpu_numa(0))
+        device = next((t.device for t in _leaves(params) if isinstance(t, torch.Tensor)), None)
+        self._pinned_dst = device is not None and device.type == "cuda"
 
     def _stage_in(self, data: np.ndarray) -> Tuple[Any, Any]:
-        """Register the handoff's source and destination segments and copy
-        the cache's bytes into the source: (src, dst)."""
+        """Register the handoff's source and destination segments: (src,
+        dst). The source is `data` itself where it is a 1-D C-contiguous
+        uint8 array (with spans on, `adopted_bytes`), else a copy of it. The
+        destination is pinned memory when the params live on a card, else
+        plain; it is not zeroed, since the batch completes only once every
+        slice has written its range."""
         nbytes = max(data.size, 1)
+        adopt = adoptable(data, nbytes)
         eng = self.engine
         with _spans.span("serving.register") as sp:
-            src = eng.register_segment(self._loc_p, nbytes, name="kv-src")
-            dst = eng.register_segment(self._loc_d, nbytes, name="kv-dst")
+            out = _pinned(nbytes).numpy() if self._pinned_dst else np.empty(nbytes, np.uint8)
+            src = eng.register_segment(self._loc_p, nbytes, name="kv-src",
+                                       buffer=data if adopt else None)
+            dst = eng.register_segment(self._loc_d, nbytes, name="kv-dst", buffer=out)
         if sp is not None:
             sp.counters["segments_live"], sp.counters["segment_bytes_live"] = eng.segments.live()
-        with _spans.span("serving.stage_in"):
-            src.write(0, data)
+        with _spans.span("serving.stage_in") as sp:
+            if not adopt:
+                src.write(0, data)
+            elif sp is not None:
+                sp.counters["adopted_bytes"] = nbytes
         return src, dst
+
+    def _release(self, *segs) -> None:
+        """Deregister the handoff's segments and drop their bytes; a caller
+        reads them through a `view` taken before."""
+        for seg in segs:
+            self.engine.segments.deregister(seg.segment_id)
+            seg.drop_bytes()
 
     def ship_kv_async(self, data: np.ndarray, on_done=None) -> Tuple[Any, int]:
         """Declarative KV-handoff intent: post the prefill->decode elephant
         flow as one async TENT batch and return (dst_segment, batch_id)
-        immediately; the decode side is woken by the completion callback."""
+        immediately; the decode side is woken by the completion callback.
+        When the batch lands, ok or failed, both segments are released
+        before `on_done` runs; the returned segment is a view of the
+        destination's bytes, which no slice writes after that."""
         src, dst = self._stage_in(data)
-        batch = self.engine.allocate_batch()
-        self.engine.submit_transfer(
-            batch, [(src.segment_id, 0, dst.segment_id, 0, src.length)])
-        if on_done is not None:
-            self.engine.on_batch_done(batch, on_done)
-        return dst, batch
+        out = dst.view()
+
+        def landed(res) -> None:
+            self._release(src, dst)
+            if on_done is not None:
+                on_done(res)
+
+        try:
+            batch = self.engine.allocate_batch()
+            self.engine.submit_transfer(
+                batch, [(src.segment_id, 0, dst.segment_id, 0, src.length)])
+        except BaseException:
+            self._release(src, dst)
+            raise
+        self.engine.on_batch_done(batch, landed)
+        return out, batch
 
     def generate(self, prompt: torch.Tensor, n_new: int, max_len: int,
                  enc_frames: Optional[torch.Tensor] = None,
@@ -160,8 +247,12 @@ class DisaggregatedServer:
             self.engine.run_until_idle()
             res = done["res"]
         else:
-            src, dst = self._stage_in(data)
-            res = self.engine.transfer_sync(src.segment_id, 0, dst.segment_id, 0, src.length)
+            src, seg = self._stage_in(data)
+            dst = seg.view()
+            try:
+                res = self.engine.transfer_sync(src.segment_id, 0, seg.segment_id, 0, src.length)
+            finally:
+                self._release(src, seg)
         if not res.ok:
             raise RuntimeError(f"KV handoff failed: {res.error}")
         secs = self.engine.fabric.now - t0

@@ -3,10 +3,11 @@ serving path, on the CPU at smoke sizes.
 
 Each test pins one fact: spans nest under their request; the recorder
 moves no byte and changes no result or counter of the engine; the slices'
-copies inside the engine's event loop are twice the bytes shipped, and a
-served request copies five times what it ships; accumulators are
-exclusive; the segments registered are counted; ranges open only under a
-profiler; and with nothing attached every site does nothing.
+copies inside the engine's event loop are twice the bytes shipped, stage-in
+registers the bytes in place, and a served request on the CPU copies four
+times what it ships; accumulators are exclusive; the segments registered
+are counted, two a handoff in flight; ranges open only under a profiler;
+and with nothing attached every site does nothing.
 """
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import TentEngine
+from repro_torch.core import Location, MemoryKind, TentEngine
 from repro_torch.models import init_params
 from repro_torch.obs import spans
 from repro_torch.scenarios import get
@@ -101,7 +102,8 @@ def test_engine_run_copies_exactly_twice_the_bytes_shipped(recorder):
         _handoff(_engine(), data)
     by_name = {s.name: s for s in recorder.take(root.request)}
     assert by_name["engine.run"].counters["copy_bytes"] == 2 * data.size
-    assert by_name["serving.stage_in"].counters["copy_bytes"] == data.size
+    assert by_name["serving.stage_in"].counters.get("copy_bytes", 0) == 0
+    assert by_name["serving.stage_in"].counters["adopted_bytes"] == data.size
     assert "copy_bytes" not in by_name["engine.submit"].counters
 
 
@@ -155,15 +157,17 @@ def test_a_served_request_nests_every_span_under_its_id(recorder, smoke):
 
 
 def test_a_served_request_copies_five_times_what_it_ships(recorder, smoke):
-    """Stage-in, each slice's read and write, the read-out and
-    `bytes_to_tree`'s leaves: five host copies of the cache."""
+    """Each slice's read and write, the read-out and `bytes_to_tree`'s
+    leaves: four host copies of the cache on the CPU. Stage-in registers
+    the packed bytes in place and copies none (before in-place
+    registration it was the fifth)."""
     cfg, params, prompt = smoke
     server = DisaggregatedServer(_engine(), cfg, params)
     with recorder.request(keep=True) as root:
         res = server.generate(prompt, 3, 16, async_handoff=True)
     got = recorder.take(root.request)
     copied = sum(s.counters.get("copy_bytes", 0) for s in got)
-    assert copied == 5 * res.kv_bytes
+    assert copied == 4 * res.kv_bytes
     unpack = next(s for s in got if s.name == "serving.unpack")
     assert unpack.counters["copy_bytes"] == res.kv_bytes
 
@@ -184,16 +188,21 @@ def test_a_recorder_left_attached_holds_nothing_it_was_not_asked_to_keep(recorde
 
 
 def test_register_counts_the_segments_left_registered(recorder):
+    """Each handoff's two segments are the only ones registered while it
+    is in flight, and none is left once its batch has landed."""
     eng = _engine()
     data = _data()
     for _ in range(2):
         with recorder.request(keep=True) as root:
             _handoff(eng, data, flap=False)
         reg = next(s for s in recorder.take(root.request) if s.name == "serving.register")
-    assert reg.counters == {"segments_live": 4, "segment_bytes_live": 4 * data.size}
-    seg = eng.segments.all_segments()[0]
+        assert reg.counters == {"segments_live": 2, "segment_bytes_live": 2 * data.size}
+        assert eng.segments.live() == (0, 0)
+    seg = eng.register_segment(Location(node=0, kind=MemoryKind.HOST_DRAM, device=0, numa=0),
+                               data.size)
+    assert eng.segments.live() == (1, data.size)
     eng.segments.deregister(seg.segment_id)
-    assert eng.segments.live() == (3, 3 * data.size)
+    assert eng.segments.live() == (0, 0)
 
 
 def test_decode_steps_each_open_a_span(recorder, smoke):
