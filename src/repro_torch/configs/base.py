@@ -24,6 +24,9 @@ ARCH_IDS = [
     "qwen3_moe_235b_a22b",
 ]
 
+# the mixers a layer of `ModelConfig.layer_types` may have
+LAYER_KINDS = ("mamba", "attention")
+
 # canonical dashed ids (CLI --arch) -> module name
 ARCH_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 ARCH_ALIASES.update({a: a for a in ARCH_IDS})
@@ -40,6 +43,9 @@ ARCH_ALIASES.update(
         "deepseek-7b": "deepseek_7b",
         "mamba2-370m": "mamba2_370m",
         "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+        # served and benchmarked, not in ARCH_IDS: the JAX package has no
+        # counterpart to hold it against
+        "granite-4.0-h-small": "granite_4_0_h_small",
     }
 )
 
@@ -59,7 +65,8 @@ class ModelConfig:
     # MoE
     num_experts: int = 0
     experts_per_token: int = 0
-    moe_capacity_factor: float = 1.25
+    moe_capacity_factor: float = 1.25  # 0 = dropless: every (token, expert) pair computed
+    shared_d_ff: int = 0  # width of a shared SwiGLU expert every token passes; 0 = none
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -68,17 +75,32 @@ class ModelConfig:
     ssm_chunk: int = 128
     # hybrid (parallel attn + SSM heads, Hymba-style)
     hybrid: bool = False
+    # the mixer of each layer, "mamba" or "attention" (Granite 4.0-H's
+    # layer_types); empty = every layer as arch_type says
+    layer_types: Tuple[str, ...] = ()
     # encoder-decoder (audio backbone)
     encoder_layers: int = 0
     # attention variant
     sliding_window: int = 0  # 0 = full causal; >0 = sliding-window (serving)
     rope_theta: float = 1e4
+    nope: bool = False  # no positional encoding in attention (no rotary)
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # scalar multipliers (Granite's); each at its default launches nothing
+    embedding_multiplier: float = 1.0  # on the input embedding
+    residual_multiplier: float = 1.0  # on each mixer's and FFN's output before the residual add
+    attention_multiplier: float = 0.0  # the softmax scale; 0 = 1/sqrt(head_dim)
+    logits_scaling: float = 1.0  # the logits are divided by it
     # execution
     use_pallas: bool = False  # hand-written Hopper kernels on CUDA tensors
     remat: str = "full"  # none | full  (training activation checkpointing)
     source: str = ""  # citation
+
+    def __post_init__(self):
+        scaled = (self.residual_multiplier, self.attention_multiplier) != (1.0, 0.0)
+        if self.is_encdec and scaled:
+            raise ValueError(f"{self.name}: the encoder and cross-attention take no "
+                             "residual_multiplier or attention_multiplier")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -102,11 +124,31 @@ class ModelConfig:
     def attention_free(self) -> bool:
         return self.arch_type == "ssm"
 
+    @property
+    def dropless(self) -> bool:
+        return self.num_experts > 0 and self.moe_capacity_factor <= 0
+
+    def layer_slots(self) -> Tuple[Tuple[str, int], ...]:
+        """(kind, index in that kind's stack) of each layer of `layer_types`."""
+        seen: Dict[str, int] = {}
+        out = []
+        for kind in self.layer_types:
+            if kind not in LAYER_KINDS:
+                raise ValueError(f"{self.name}: layer type {kind!r}, not one of {LAYER_KINDS}")
+            out.append((kind, seen.get(kind, 0)))
+            seen[kind] = seen.get(kind, 0) + 1
+        return tuple(out)
+
+    def layers_of(self, kind: str) -> int:
+        return sum(t == kind for t in self.layer_types)
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     # ---- parameter counting (for MODEL_FLOPS = 6 N D) ----------------------
     def param_count(self, *, active_only: bool = False) -> int:
+        if self.layer_types:
+            return self._param_count_by_kind(active_only)
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         H, K, Hd = self.num_heads, self.num_kv_heads, self.resolved_head_dim
         n = V * D  # embedding
@@ -137,6 +179,28 @@ class ModelConfig:
             xattn = L * (D * H * Hd + 2 * D * K * Hd + H * Hd * D + D)
             n += enc + xattn
         return n
+
+    def _param_count_by_kind(self, active_only: bool) -> int:
+        """Every leaf of a `layer_types` model: each mixer over its own
+        layers, norms and the (MoE) FFN over all of them."""
+        D, V, L = self.d_model, self.vocab_size, self.num_layers
+        H, K, Hd = self.num_heads, self.num_kv_heads, self.resolved_head_dim
+        attn = D * H * Hd + 2 * D * K * Hd + H * Hd * D
+        if self.qkv_bias:
+            attn += (H + 2 * K) * Hd
+        di, N, nh = self.ssm_d_inner, self.ssm_state, self.ssm_nheads
+        cd = di + 2 * N
+        mamba = D * (2 * di + 2 * N + nh) + di * D  # in/out proj
+        mamba += (self.ssm_conv + 1) * cd + 3 * nh + di  # conv w and b, dt_bias, A_log, D, norm
+        if self.num_experts > 0:
+            e = self.experts_per_token if active_only else self.num_experts
+            ffn = D * self.num_experts + e * 3 * D * self.d_ff
+        else:
+            ffn = 3 * D * self.d_ff
+        ffn += 3 * D * self.shared_d_ff
+        n = V * D * (1 if self.tie_embeddings else 2) + D  # embedding(s), final norm
+        n += L * (2 * D + ffn)
+        return n + self.layers_of("attention") * attn + self.layers_of("mamba") * mamba
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,9 @@ Counterpart of `repro.models.model`, parameterized by ModelConfig:
   dense / vlm      -> GQA attention + SwiGLU FFN decoder
   moe              -> GQA attention + top-k expert FFN (sorted dispatch)
   ssm              -> Mamba2 SSD mixer blocks (attention-free)
-  hybrid           -> parallel attention + SSM heads per layer + FFN
+  hybrid           -> parallel attention + SSM heads per layer + FFN; with
+                      `layer_types`, a Mamba2 mixer or attention by layer,
+                      each followed by the FFN (Granite 4.0-H)
   audio (enc-dec)  -> bidirectional encoder over frame embeddings + causal
                       decoder with cross-attention
 
@@ -30,7 +32,16 @@ SSM layers are Mamba2 mixers (`ssm.py`); hybrid layers run attention and
 the mixer in parallel from the same input and average them. MoE layers
 call `moe.moe_ffn_ep` in the prefill and training passes and
 `moe.moe_ffn_sorted` in the decode step, as the reference's do; without a
-mesh both are the sorted dispatch.
+mesh both are the sorted dispatch. A dropless MoE calls
+`moe.moe_ffn_dropless` in both, and a shared expert adds its SwiGLU.
+
+Under `layer_types` each mixer's leaves are stacked over the layers of
+its kind only ("ssm_*" over the Mamba2 layers, "wq".."wo" over the
+attention layers), the norms and the FFN over every layer; the decode
+cache likewise holds "k"/"v" for the attention layers and "ssm_state"/
+"conv_buf" for the Mamba2 layers. NoPE skips the rotary embedding; the
+scalar multipliers (embedding, residual, softmax scale, logits) launch
+nothing at their defaults.
 
 Under `repro_torch.sharding.ctx.activation_sharding(mesh)`, with the
 parameters as DTensors (`sharding.rules.param_shardings`), every entry
@@ -56,7 +67,7 @@ from ..sharding.ctx import constrain, hold_layout, split_dim
 from .attention import attend_cached, attend_cross, attend_full, cache_update, prefill_attention
 from .common import (apply_rope, cross_entropy, dense_init, embed_init, rms_norm,
                      rope_angles, swiglu)
-from .moe import moe_ffn_ep, moe_ffn_sorted, moe_param_shapes
+from .moe import moe_ffn_dropless, moe_ffn_ep, moe_ffn_sorted, moe_param_shapes
 from .ssm import mamba2_mixer, mamba2_mixer_step, mixer_param_shapes
 
 Params = Dict[str, Any]
@@ -84,9 +95,26 @@ def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D)}
 
 
+# the leaves of each mixer kind under `layer_types`, stacked over that kind's layers
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def _leaf_kind(name: str) -> str:
+    """The layer kind whose stack holds leaf `name` ("" = every layer)."""
+    if name.startswith("ssm_"):
+        return "mamba"
+    return "attention" if name in _ATTN_LEAVES else ""
+
+
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     D = cfg.d_model
     s: Dict[str, tuple] = {"ln1": (D,)}
+    if cfg.layer_types:
+        s.update(_attn_shapes(cfg))
+        s.update(mixer_param_shapes(cfg))
+        s["ln2"] = (D,)
+        s.update(moe_param_shapes(cfg) if cfg.num_experts > 0 else _ffn_shapes(cfg))
+        return s
     if cfg.arch_type == "ssm":
         s.update(mixer_param_shapes(cfg))
         return s
@@ -106,12 +134,17 @@ def _encoder_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return {"ln1": (D,), "ln2": (D,), **_attn_shapes(cfg), **_ffn_shapes(cfg)}
 
 
+def _stack_len(cfg: ModelConfig, name: str) -> int:
+    kind = _leaf_kind(name) if cfg.layer_types else ""
+    return cfg.layers_of(kind) if kind else cfg.num_layers
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    D, V = cfg.d_model, cfg.vocab_size
     out: Dict[str, Any] = {
         "embed": (V, D),
         "final_norm": (D,),
-        "layers": {k: (L,) + v for k, v in _layer_shapes(cfg).items()},
+        "layers": {k: (_stack_len(cfg, k),) + v for k, v in _layer_shapes(cfg).items()},
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = (D, V)
@@ -216,6 +249,31 @@ def _layer(lp: Params, i: int) -> Params:
     return {k: v[i] for k, v in lp.items()}
 
 
+def _slot_layer(lp: Params, i: int, kind: str, j: int) -> Params:
+    """Layer i's leaves under `layer_types`: the FFN and norms at i, its
+    mixer's (of `kind`) at j, its slot in that kind's stack."""
+    out = {}
+    for name, v in lp.items():
+        own = _leaf_kind(name)
+        if not own:
+            out[name] = v[i]
+        elif own == kind:
+            out[name] = v[j]
+    return out
+
+
+def _scaled(t: torch.Tensor, m: float) -> torch.Tensor:
+    """t * m, launching nothing where m is 1."""
+    return t if m == 1.0 else t * m
+
+
+def _scale_q(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
+    """q scaled so that the kernels' 1/sqrt(head_dim) makes the softmax
+    scale `attention_multiplier`; q itself when that is 0 (the default)."""
+    m = cfg.attention_multiplier
+    return q if m == 0.0 else q * (m * cfg.resolved_head_dim ** 0.5)
+
+
 def _project_qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch.Tensor):
     B, S, _ = h.shape
     H, K, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -227,6 +285,8 @@ def _project_qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch
     q = constrain(split_dim(q, -1, H, Hd), "bshd")
     k = constrain(split_dim(k, -1, K, Hd), "bshd")
     v = constrain(split_dim(v, -1, K, Hd), "bshd")
+    if cfg.nope:
+        return q, k, v
     cos, sin = rope_angles(positions, Hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -274,47 +334,69 @@ def _cross_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, kx: torch.Tensor
 def _ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, moe=moe_ffn_ep
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x + the FFN of the normed x (SwiGLU, or the MoE FFN `moe` over the
-    B*S tokens); returns the MoE aux losses ({} for a dense FFN)."""
+    B*S tokens, `moe_ffn_dropless` for a dropless MoE, plus the shared
+    expert, in a `model.moe` span), times `residual_multiplier`; returns the
+    MoE aux losses ({} for a dense FFN)."""
     # the residual stream's layout before the FFN reads it (a site of the
     # port's own: DTensor would otherwise carry the attention output's partial
     # sum into the FFN and replicate its products over `model`)
     x = constrain(x, "bsd")
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.num_experts == 0:
-        return x + swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
-    y, aux = moe(cfg, lp, h2.reshape(-1, h2.shape[-1]))
-    return x + y.reshape(h2.shape), aux
+        return x + _scaled(swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]),
+                           cfg.residual_multiplier), {}
+    if cfg.dropless:
+        moe = moe_ffn_dropless
+    with _spans.span("model.moe") as sp:
+        tokens = h2.reshape(-1, h2.shape[-1])
+        y, aux = moe(cfg, lp, tokens)
+        y = y.reshape(h2.shape)
+        if cfg.shared_d_ff:
+            y = y + swiglu(h2, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
+        if sp is not None:
+            sp.counters["routed_pairs"] = tokens.shape[0] * cfg.experts_per_token
+    return x + _scaled(y, cfg.residual_multiplier), aux
+
+
+def _mixer_kind(cfg: ModelConfig, kind: str) -> str:
+    """A layer's mixer: `kind` under `layer_types`, else as `arch_type`
+    says ("attention" for a hybrid, whose SSM heads run beside it)."""
+    return kind or ("mamba" if cfg.arch_type == "ssm" else "attention")
 
 
 def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
-                   enc_out: Optional[torch.Tensor] = None, collect_cache: bool = False
+                   enc_out: Optional[torch.Tensor] = None, collect_cache: bool = False,
+                   kind: str = ""
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """One layer over the whole sequence; returns (x, MoE aux losses, this
-    layer's decode cache, empty unless `collect_cache`)."""
+    layer's decode cache, empty unless `collect_cache`). `kind` is the
+    layer's mixer under `layer_types`."""
     cache: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if cfg.arch_type == "ssm":
-        y, st, conv_tail = mamba2_mixer(cfg, lp, h)
+    if _mixer_kind(cfg, kind) == "mamba":
+        mixed, st, conv_tail = mamba2_mixer(cfg, lp, h)
         if collect_cache:
             cache = {"ssm_state": st.float(), "conv_buf": conv_tail}
-        return x + y, {}, cache
-    q, k, v = _project_qkv(cfg, lp, h, positions)
-    a = prefill_attention(q, k, v, window=cfg.sliding_window, use_pallas=cfg.use_pallas)
-    a = constrain(a, "bshd")
-    attn = _merge_heads(a) @ lp["wo"]
-    if collect_cache:
-        if cfg.sliding_window > 0:
-            k, v = _ring_cache(k, cfg.sliding_window), _ring_cache(v, cfg.sliding_window)
-        # the decode-cache layout here, so the cache's length sharding does
-        # not reach back into attention
-        cache.update({"k": constrain(k, "cache_kv"), "v": constrain(v, "cache_kv")})
-    mixed = attn
-    if cfg.hybrid:
-        y, st, conv_tail = mamba2_mixer(cfg, lp, h)
+    else:
+        q, k, v = _project_qkv(cfg, lp, h, positions)
+        a = prefill_attention(_scale_q(cfg, q), k, v, window=cfg.sliding_window,
+                              use_pallas=cfg.use_pallas)
+        a = constrain(a, "bshd")
+        mixed = _merge_heads(a) @ lp["wo"]
         if collect_cache:
-            cache.update({"ssm_state": st.float(), "conv_buf": conv_tail})
-        mixed = 0.5 * (attn + y)  # Hymba-style parallel head fusion
-    x = x + mixed
+            if cfg.sliding_window > 0:
+                k, v = _ring_cache(k, cfg.sliding_window), _ring_cache(v, cfg.sliding_window)
+            # the decode-cache layout here, so the cache's length sharding does
+            # not reach back into attention
+            cache.update({"k": constrain(k, "cache_kv"), "v": constrain(v, "cache_kv")})
+        if cfg.hybrid:
+            y, st, conv_tail = mamba2_mixer(cfg, lp, h)
+            if collect_cache:
+                cache.update({"ssm_state": st.float(), "conv_buf": conv_tail})
+            mixed = 0.5 * (mixed + y)  # Hymba-style parallel head fusion
+    x = x + _scaled(mixed, cfg.residual_multiplier)
+    if cfg.arch_type == "ssm":  # a Mamba2 block is its mixer alone
+        return x, {}, cache
     if cfg.is_encdec and enc_out is not None:
         kx, vx = _project_kv_cross(cfg, lp, enc_out)
         x = _cross_block(cfg, lp, x, kx, vx)
@@ -322,6 +404,16 @@ def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: tor
             cache.update({"enc_k": constrain(kx, "cache_kv"), "enc_v": constrain(vx, "cache_kv")})
     x, aux = _ffn_block(cfg, lp, x)
     return constrain(x, "bsd"), aux, cache
+
+
+def _layers(cfg: ModelConfig, lp: Params):
+    """(layer params, kind, slot) of each layer in order: under
+    `layer_types` its mixer's kind and its place in that kind's stack (and
+    cache), else "" and the layer's index."""
+    if not cfg.layer_types:
+        return ((_layer(lp, i), "", i) for i in range(cfg.num_layers))
+    return ((_slot_layer(lp, i, kind, j), kind, j)
+            for i, (kind, j) in enumerate(cfg.layer_slots()))
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -363,11 +455,13 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return constrain(F.embedding(tokens.long(), table), "bsd")
 
 
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params.get("lm_head")
     if head is None:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"]).float()
-    return (x @ head).float()
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"]).float()
+    else:
+        logits = (x @ head).float()
+    return logits if cfg.logits_scaling == 1.0 else logits / cfg.logits_scaling
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -383,7 +477,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     come out of the checkpoint as outputs. The stacked layer leaves are
     unbound once, so each leaf's gradient is one stack of L slices."""
     B, S = tokens.shape
-    x = _embed(params, tokens)
+    x = _scaled(_embed(params, tokens), cfg.embedding_multiplier)
     positions = torch.arange(S, device=x.device)
     enc_out = _encoder_output(cfg, params, enc_frames)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -392,13 +486,13 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     if (cfg.remat == "full" if remat is None else remat) and torch.is_grad_enabled():
         layer = functools.partial(checkpoint, layer, use_reentrant=False)
     lp = {k: v.unbind(0) for k, v in params["layers"].items()}
-    for i in range(cfg.num_layers):
-        x, aux, _ = layer({k: v[i] for k, v in lp.items()}, x, positions, enc_out)
+    for p, kind, _ in _layers(cfg, lp):
+        x, aux, _ = layer(p, x, positions, enc_out, False, kind)
         if aux:
             lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     denom = max(cfg.num_layers, 1)
-    return constrain(_logits(params, x), "logits"), {"lb_loss": lb / denom,
+    return constrain(_logits(cfg, params, x), "logits"), {"lb_loss": lb / denom,
                                                      "z_loss": zl / denom}
 
 
@@ -439,26 +533,37 @@ def prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     conv-1, conv_dim) for Mamba2 layers; "enc_k", "enc_v" (L, B, S_enc,
     K, Hd), the cross-attention K/V over the encoder's output, for
     enc-dec (which needs enc_frames)."""
-    with _spans.span("model.prefill"):
-        return _prefill_forward(cfg, params, tokens, enc_frames)
+    with _spans.span("model.prefill") as sp:
+        logits, cache = _prefill_forward(cfg, params, tokens, enc_frames)
+        if sp is not None:
+            _cache_counters(sp.counters, cache)
+        return logits, cache
+
+
+def _cache_counters(c: Dict[str, int], cache: Dict[str, torch.Tensor]) -> None:
+    """`model.prefill`'s counters, from shapes: the bytes of the cache's
+    fixed state ("ssm_state", "conv_buf") and of its per-token K/V."""
+    nbytes = {name: t.numel() * t.element_size() for name, t in cache.items()}
+    c["cache_state_bytes"] = nbytes.get("ssm_state", 0) + nbytes.get("conv_buf", 0)
+    c["cache_kv_bytes"] = nbytes.get("k", 0) + nbytes.get("v", 0)
 
 
 def _prefill_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                      enc_frames: Optional[torch.Tensor]
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S = tokens.shape
-    x = _embed(params, tokens)
+    x = _scaled(_embed(params, tokens), cfg.embedding_multiplier)
     positions = torch.arange(S, device=x.device)
     enc_out = _encoder_output(cfg, params, enc_frames)
-    lp = params["layers"]
     caches = []
-    for i in range(cfg.num_layers):
-        x, _, cache = _decoder_layer(cfg, _layer(lp, i), x, positions, enc_out,
-                                     collect_cache=True)
+    for p, kind, _ in _layers(cfg, params["layers"]):
+        x, _, cache = _decoder_layer(cfg, p, x, positions, enc_out, collect_cache=True,
+                                     kind=kind)
         caches.append(cache)
     x_last = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    stacked = {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
-    return constrain(_logits(params, x_last), "logits")[:, 0], stacked
+    names = dict.fromkeys(name for c in caches for name in c)
+    stacked = {name: torch.stack([c[name] for c in caches if name in c]) for name in names}
+    return constrain(_logits(cfg, params, x_last), "logits")[:, 0], stacked
 
 
 # ---------------------------------------------------------------------------
@@ -469,13 +574,16 @@ def _cache_struct(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, dtyp
                   ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     L, K, Hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     W = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
+    La, Lm = L, L
+    if cfg.layer_types:
+        La, Lm = cfg.layers_of("attention"), cfg.layers_of("mamba")
     s: Dict[str, Tuple[tuple, torch.dtype]] = {}
-    if cfg.arch_type != "ssm":
-        s["k"] = s["v"] = ((L, batch, W, K, Hd), dtype)
-    if cfg.arch_type == "ssm" or cfg.hybrid:
+    if cfg.arch_type != "ssm" and La:
+        s["k"] = s["v"] = ((La, batch, W, K, Hd), dtype)
+    if (cfg.arch_type == "ssm" or cfg.hybrid or cfg.layer_types) and Lm:
         di, N = cfg.ssm_d_inner, cfg.ssm_state
-        s["ssm_state"] = ((L, batch, cfg.ssm_nheads, cfg.ssm_headdim, N), torch.float32)
-        s["conv_buf"] = ((L, batch, cfg.ssm_conv - 1, di + 2 * N), dtype)
+        s["ssm_state"] = ((Lm, batch, cfg.ssm_nheads, cfg.ssm_headdim, N), torch.float32)
+        s["conv_buf"] = ((Lm, batch, cfg.ssm_conv - 1, di + 2 * N), dtype)
     if cfg.is_encdec:
         s["enc_k"] = s["enc_v"] = ((L, batch, enc_len, K, Hd), dtype)
     return s
@@ -524,28 +632,28 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
 def _decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
                  token: torch.Tensor, pos: int
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    x = _embed(params, token)
+    x = _scaled(_embed(params, token), cfg.embedding_multiplier)
     positions = torch.full((1,), pos, device=x.device)
-    lp = params["layers"]
-    for i in range(cfg.num_layers):
-        p = _layer(lp, i)
+    for p, kind, i in _layers(cfg, params["layers"]):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if _mixer_kind(cfg, kind) == "mamba":
+            mixed = _mixer_step(cfg, p, h, cache, i)
+        else:
+            q, k, v = _project_qkv(cfg, p, h, positions)
+            k_cache, v_cache, valid = cache_update(
+                cache["k"][i], cache["v"][i], k, v, pos, window=cfg.sliding_window)
+            a = attend_cached(_scale_q(cfg, q), k_cache, v_cache, valid)
+            mixed = _merge_heads(a) @ p["wo"]
+            if cfg.hybrid:
+                mixed = 0.5 * (mixed + _mixer_step(cfg, p, h, cache, i))
+        x = x + _scaled(mixed, cfg.residual_multiplier)
         if cfg.arch_type == "ssm":
-            x = x + _mixer_step(cfg, p, h, cache, i)
             continue
-        q, k, v = _project_qkv(cfg, p, h, positions)
-        k_cache, v_cache, valid = cache_update(
-            cache["k"][i], cache["v"][i], k, v, pos, window=cfg.sliding_window)
-        a = attend_cached(q, k_cache, v_cache, valid)
-        mixed = _merge_heads(a) @ p["wo"]
-        if cfg.hybrid:
-            mixed = 0.5 * (mixed + _mixer_step(cfg, p, h, cache, i))
-        x = x + mixed
         if cfg.is_encdec:
             x = _cross_block(cfg, p, x, cache["enc_k"][i], cache["enc_v"][i])
         x, _ = _ffn_block(cfg, p, x, moe=moe_ffn_sorted)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return constrain(_logits(params, x), "logits")[:, 0], cache
+    return constrain(_logits(cfg, params, x), "logits")[:, 0], cache
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int, *,

@@ -16,6 +16,13 @@ after another in expert-ascending order, the order in which the
 reference's scatter-add applies them, with no atomics: its bits do not
 change from run to run.
 
+`moe_ffn_dropless` drops nothing (`cfg.moe_capacity_factor` 0): the
+(token, expert) pairs sorted by expert, each expert's contiguous segment
+through its SwiGLU, by one grouped product a projection
+(`torch._grouped_mm`), with nothing read on the host. Experts that
+receive no pair are never read. The combine weighs each token's k rows
+and sums them in pick order, without atomics.
+
 `moe_ffn_ep` is expert parallelism under a mesh (`repro_torch.sharding.
 ctx`), the reference's `shard_map` body on each rank's local tensors
 through `local_map`: every model-rank routes its data shard's tokens and
@@ -80,6 +87,8 @@ def _expert_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def capacity(cfg: ModelConfig, T: int) -> int:
     """Slots per expert for T tokens, the reference's Python arithmetic in
     its order of operations (1 at decode's T = B for qwen3-moe)."""
+    if cfg.dropless:
+        raise ValueError(f"{cfg.name} is dropless: its MoE has no capacity (moe_ffn_dropless)")
     return max(1, int(T * cfg.experts_per_token / cfg.num_experts * cfg.moe_capacity_factor))
 
 
@@ -244,6 +253,38 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, T: int, k: int,
     return out
 
 
+def segments_grouped(xs: torch.Tensor, counts: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of each expert's contiguous segment of xs (P, D), segment e
+    `counts[e]` rows long, by one grouped product a projection; nothing
+    waits for the host."""
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    g = torch._grouped_mm(xs, w_gate, offs=offs)
+    u = torch._grouped_mm(xs, w_up, offs=offs)
+    return torch._grouped_mm(F.silu(g) * u, w_down, offs=offs)
+
+
+def moe_ffn_dropless(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (T, D) -> (out (T, D) in x's type, aux): every (token, expert)
+    pair computed, only the experts that receive pairs read. aux has
+    "lb_loss", "z_loss" and "dropped" (0)."""
+    T, D = x.shape
+    k = cfg.experts_per_token
+    weights, idx, aux = route(x, p["router"], k)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    # a scatter, not `bincount`, which reads its input's max on the host
+    counts = flat.new_zeros(cfg.num_experts).scatter_add_(0, flat, torch.ones_like(flat))
+    xs = x[order // k]
+    ys = segments_grouped(xs, counts, p["w_gate"], p["w_up"], p["w_down"])
+    y = torch.empty_like(ys)
+    y[order] = ys  # back to (token, pick) order
+    out = (y.view(T, k, D) * weights.to(x.dtype)[..., None]).sum(1)
+    aux["dropped"] = torch.zeros((), dtype=torch.int64, device=x.device)
+    return out, aux
+
+
 def moe_ffn_dense(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Oracle: every expert computes every token; combine masks select."""
@@ -260,9 +301,13 @@ def moe_ffn_dense(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
 
 def moe_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    return {
+    s = {
         "router": (D, E),
         "w_gate": (E, D, F_),
         "w_up": (E, D, F_),
         "w_down": (E, F_, D),
     }
+    if cfg.shared_d_ff:
+        Fs = cfg.shared_d_ff
+        s.update({"shared_gate": (D, Fs), "shared_up": (D, Fs), "shared_down": (Fs, D)})
+    return s

@@ -7,7 +7,8 @@ copies inside the engine's event loop are twice the bytes shipped, stage-in
 registers the bytes in place, and a served request on the CPU copies four
 times what it ships; accumulators are exclusive; the segments registered
 are counted, two a handoff in flight; ranges open only under a profiler;
-and with nothing attached every site does nothing.
+prefill counts its cache's state and K/V bytes and each MoE call is a
+span; and with nothing attached every site does nothing.
 """
 import numpy as np
 import pytest
@@ -233,3 +234,31 @@ def test_ranges_open_only_under_a_profiler(recorder, smoke):
     with recorder.request(keep=True) as root:
         bytes_to_tree(data, {"k": torch.zeros(data.size, dtype=torch.uint8)})
     assert all(s._range is None for s in recorder.take(root.request))
+
+
+@pytest.mark.parametrize("arch", ["granite-4.0-h-small", "qwen2-0.5b", "mamba2-370m"])
+def test_prefill_counts_the_cache_and_the_moe(recorder, arch):
+    """`model.prefill` counts the bytes of the cache's fixed state and of its
+    K/V, from shapes; under an MoE each layer's FFN is a `model.moe` span
+    with its routed pairs, from shapes, and nothing that would need the
+    experts' counts on the host."""
+    cfg = get_smoke_config(arch).with_(remat="none")
+    params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
+    from repro_torch.models import prefill_forward
+
+    with recorder.request(keep=True) as root:
+        _, cache = prefill_forward(cfg, params, prompt)
+    got = recorder.take(root.request)
+    prefill = next(s for s in got if s.name == "model.prefill")
+    nbytes = {n: t.numel() * t.element_size() for n, t in cache.items()}
+    assert prefill.counters == {
+        "cache_state_bytes": nbytes.get("ssm_state", 0) + nbytes.get("conv_buf", 0),
+        "cache_kv_bytes": nbytes.get("k", 0) + nbytes.get("v", 0)}
+    moes = [s for s in got if s.name == "model.moe"]
+    assert len(moes) == (cfg.num_layers if cfg.num_experts else 0)
+    for s in moes:
+        assert s.parent == prefill.id
+        assert s.counters == {"routed_pairs": prompt.numel() * cfg.experts_per_token}
+    if arch == "granite-4.0-h-small":
+        assert prefill.counters["cache_state_bytes"] > 0 and prefill.counters["cache_kv_bytes"] > 0
