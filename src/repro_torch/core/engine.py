@@ -1046,10 +1046,18 @@ class TentEngine:
         # phantom destination's write is a no-op, so skip materializing the
         # source bytes at all (phantom reads allocate a zero buffer per
         # slice — pure drain-loop waste for timing-only segments); bounds
-        # were validated for the whole transfer at submit time.
+        # were validated for the whole transfer at submit time. The source
+        # range is read in place, so a slice makes one host copy, the write;
+        # overlapping ranges of one segment are read out first, since a
+        # write across two buffers could overwrite source bytes it has yet
+        # to copy.
         src_seg, dst_seg, dst_phantom = tcb.segs
         if not dst_phantom:
-            dst_seg.write(sl.dst_offset, src_seg.read(sl.src_offset, sl.length))
+            src, dst, n = sl.src_offset, sl.dst_offset, sl.length
+            if src_seg is dst_seg and src < dst + n and dst < src + n:
+                dst_seg.write(dst, src_seg.read(src, n))
+            else:
+                dst_seg.write(dst, src_seg.read_in_place(src, n))
         sl.state = SliceState.DONE
         sl.completed_at = t_end
         tcb.remaining -= 1

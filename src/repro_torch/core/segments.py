@@ -53,6 +53,9 @@ class Segment:
     # by large-scale simulations where allocating the real pool (tens of GB)
     # is pointless. Data-integrity tests always use materialized segments.
     phantom_length: int = 0
+    # set by `view()` alone: held by no registry and no engine, so no slice
+    # writes it after its batch lands, and `read` hands out its bytes in place
+    _detached: bool = dataclasses.field(default=False, init=False, repr=False, compare=False)
 
     @property
     def phantom(self) -> bool:
@@ -66,10 +69,38 @@ class Segment:
 
     # -- byte access (used by transport backends only; the core engine and
     # applications never touch raw bytes). On materialized segments these
-    # are where the bytes move, one call a slice: with spans on, each is a
-    # `copy_ns` / `copy_bytes` accumulator (repro_torch.obs.spans) ----------
+    # are where the bytes move, one call a slice: with spans on, each copy
+    # is a `copy_ns` / `copy_bytes` accumulator and each read handed out in
+    # place adds to `inplace_bytes` (repro_torch.obs.spans) ---------------
     def read(self, offset: int, length: int) -> np.ndarray:
+        """The bytes of [offset, offset + length). On a registered segment,
+        a copy: later slices may write the segment while the caller holds
+        it. On a `view`, as `read_in_place`: an array that aliases the
+        segment's bytes wherever one buffer holds the range."""
+        if self._detached:
+            return self.read_in_place(offset, length)
         self._check_range(offset, length)
+        return self._copy_out(offset, length)
+
+    def read_in_place(self, offset: int, length: int) -> np.ndarray:
+        """The bytes of [offset, offset + length) with no copy where one
+        buffer holds them all: a view of that buffer, which aliases the
+        segment's bytes, so it is for a reader that no writer can follow
+        (a landed view, or a slice written on at once). A range across two
+        buffers, or a phantom's, is copied as `read` copies."""
+        self._check_range(offset, length)
+        for buf in self.buffers:
+            end = buf.start + buf.length
+            if offset < end:
+                if offset + length > end:
+                    break
+                rec = _spans.active
+                if rec is not None:
+                    rec.count("inplace_bytes", length)
+                return buf.data[offset - buf.start:offset - buf.start + length]
+        return self._copy_out(offset, length)
+
+    def _copy_out(self, offset: int, length: int) -> np.ndarray:
         if self.phantom:
             return np.zeros(length, dtype=np.uint8)
         rec = _spans.active
@@ -104,8 +135,13 @@ class Segment:
 
     def view(self) -> "Segment":
         """A second `Segment` over the same buffers, held by no registry and
-        no engine: it stays readable after `drop_bytes`."""
-        return dataclasses.replace(self, buffers=list(self.buffers))
+        no engine: it stays readable after `drop_bytes`. Its `read` aliases
+        the buffers (see `read_in_place`), so read it once the batch that
+        writes them has landed; `write` and the buffers are as the
+        segment's."""
+        out = dataclasses.replace(self, buffers=list(self.buffers))
+        out._detached = True
+        return out
 
     def drop_bytes(self) -> None:
         """Let go of the buffers once the segment is deregistered, so that

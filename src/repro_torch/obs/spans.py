@@ -10,8 +10,8 @@ engine's submission and event loop.
 Zero-cost-when-off contract, as the flight recorder's: the process holds
 one slot, `active`, which is None until `attach` puts a `SpanRecorder`
 there, and every record site is one `active` load and one `is not None`
-branch per call or batch; `Segment.read` and `write`, where the bytes move,
-are the one site per slice.
+branch per call or batch; `Segment.read`, `read_in_place` and `write`,
+where the bytes move, are the one site per slice.
 
 Two kinds of record sites:
 
@@ -31,6 +31,8 @@ Two kinds of record sites:
   `copy_bytes`). They are exclusive: a drain's nanoseconds leave out the
   dispatch and the copies that run inside it, so no nanosecond is counted
   twice, and a span's time less its accumulators' is its own.
+- **Counts** (`count`): a number with no time, on the innermost open
+  span: the bytes a segment read hands out in place (`inplace_bytes`).
 
 Recording is passive: nothing here schedules a fabric event, touches
 engine state or changes a byte that moves.
@@ -179,6 +181,13 @@ class SpanRecorder:
             c = self._open[-1].counters
             c[ns_key] = c.get(ns_key, 0) + own
             c[count_key] = c.get(count_key, 0) + count
+
+    def count(self, key: str, n: int) -> None:
+        """Add `n` to counter `key` of the innermost open span: a count with
+        no time, such as the bytes a read hands out in place."""
+        if self._open:
+            c = self._open[-1].counters
+            c[key] = c.get(key, 0) + n
 
 
 def attach(rec: Optional[SpanRecorder] = None) -> SpanRecorder:

@@ -13,9 +13,10 @@ caching host allocator, which the handoff's source segment maps in place
 destination segment is the same kind of memory. Both segments are
 deregistered when the batch lands and let go of their bytes (the engine
 keeps its records of finished batches); the caller reads the destination
-through a view of its own. A block returns to the allocator once the last
-view of it is gone, so a server reuses already pinned, already touched
-pages from request to request.
+through a view of its own, whose read hands out the pinned bytes in place,
+so they cross to the card by one DMA with no host copy. A block returns to
+the allocator once the last view of it is gone, so a server reuses already
+pinned, already touched pages from request to request.
 
 Byte streams match the reference's: leaves in `jax.tree_util` order (dict
 keys sorted), metas carrying numpy dtype names ("float32", "bfloat16").
@@ -89,7 +90,8 @@ def tree_to_bytes(tree: Any) -> Tuple[np.ndarray, List[Tuple[tuple, str]]]:
 def bytes_to_tree(data: np.ndarray, like: Any) -> Any:
     """Inverse of `tree_to_bytes`: shapes, dtypes and devices from `like`.
     When every leaf of `like` is on one card, `data` crosses to it in one
-    transfer and each leaf is a view of its byte range there, with no host
+    blocking transfer (one DMA where `data` is pinned, as a landed view's
+    `read` is) and each leaf is a view of its byte range there, with no host
     copy. Otherwise each leaf's bytes are copied on the host before they
     cross to its device; with spans on, those copies are `copy_ns` /
     `copy_bytes`."""
@@ -202,7 +204,8 @@ class DisaggregatedServer:
         immediately; the decode side is woken by the completion callback.
         When the batch lands, ok or failed, both segments are released
         before `on_done` runs; the returned segment is a view of the
-        destination's bytes, which no slice writes after that."""
+        destination's bytes, which no slice writes after that, so its
+        `read` hands them out in place."""
         src, dst = self._stage_in(data)
         out = dst.view()
 

@@ -2,10 +2,10 @@
 serving path, on the CPU at smoke sizes.
 
 Each test pins one fact: spans nest under their request; the recorder
-moves no byte and changes no result or counter of the engine; the slices'
-copies inside the engine's event loop are twice the bytes shipped, stage-in
-registers the bytes in place, and a served request on the CPU copies four
-times what it ships; accumulators are exclusive; the segments registered
+moves no byte and changes no result or counter of the engine; inside the
+engine's event loop each slice copies its bytes once and reads its source
+in place, stage-in registers the bytes in place, and a served request on
+the CPU copies twice what it ships and hands out twice that in place; accumulators are exclusive; the segments registered
 are counted, two a handoff in flight; ranges open only under a profiler;
 prefill counts its cache's state and K/V bytes and each MoE call is a
 span; and with nothing attached every site does nothing.
@@ -98,11 +98,15 @@ def test_recorder_moves_the_same_bytes_and_leaves_results_and_counters(flap):
 
 
 def test_engine_run_copies_exactly_twice_the_bytes_shipped(recorder):
+    """Since slices read their source in place: the event loop copies the
+    bytes shipped once (each slice's write, retried slices included) and
+    hands them out in place once (each slice's read)."""
     data = _data()
     with recorder.request(keep=True) as root:
         _handoff(_engine(), data)
     by_name = {s.name: s for s in recorder.take(root.request)}
-    assert by_name["engine.run"].counters["copy_bytes"] == 2 * data.size
+    assert by_name["engine.run"].counters["copy_bytes"] == data.size
+    assert by_name["engine.run"].counters["inplace_bytes"] == data.size
     assert by_name["serving.stage_in"].counters.get("copy_bytes", 0) == 0
     assert by_name["serving.stage_in"].counters["adopted_bytes"] == data.size
     assert "copy_bytes" not in by_name["engine.submit"].counters
@@ -158,19 +162,24 @@ def test_a_served_request_nests_every_span_under_its_id(recorder, smoke):
 
 
 def test_a_served_request_copies_five_times_what_it_ships(recorder, smoke):
-    """Each slice's read and write, the read-out and `bytes_to_tree`'s
-    leaves: four host copies of the cache on the CPU. Stage-in registers
-    the packed bytes in place and copies none (before in-place
-    registration it was the fifth)."""
+    """Two host copies of the cache on the CPU: each slice's write and
+    `bytes_to_tree`'s leaves. Two more pass in place: each slice's read of
+    its source and the read-out of the landed view. (Five copies before
+    stage-in registered the packed bytes in place, four before the slices
+    and the read-out read in place.)"""
     cfg, params, prompt = smoke
     server = DisaggregatedServer(_engine(), cfg, params)
     with recorder.request(keep=True) as root:
         res = server.generate(prompt, 3, 16, async_handoff=True)
     got = recorder.take(root.request)
     copied = sum(s.counters.get("copy_bytes", 0) for s in got)
-    assert copied == 4 * res.kv_bytes
+    inplace = sum(s.counters.get("inplace_bytes", 0) for s in got)
+    assert copied == 2 * res.kv_bytes and inplace == 2 * res.kv_bytes
     unpack = next(s for s in got if s.name == "serving.unpack")
     assert unpack.counters["copy_bytes"] == res.kv_bytes
+    assert "inplace_bytes" not in unpack.counters
+    run = next(s for s in got if s.name == "engine.run")
+    assert run.counters["copy_bytes"] == run.counters["inplace_bytes"] == res.kv_bytes
 
 
 def test_a_recorder_left_attached_holds_nothing_it_was_not_asked_to_keep(recorder, smoke):
