@@ -920,16 +920,6 @@ def _close(name, got, want, tol=2e-3):
     return err.max().item()
 
 
-def decode_cache(cfg, cache: dict, max_len: int) -> dict:
-    """A decode cache from a prefill cache, in new tensors (decoding writes
-    into its cache): K/V of a cache without a window grow to `max_len`; a
-    window's ring and the SSM leaves (which have no length axis) are copied
-    as they are."""
-    pad = cfg.sliding_window == 0
-    return {name: F.pad(t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
-            if pad and name in ("k", "v") else t.clone() for name, t in cache.items()}
-
-
 def expected_launches(cfg) -> dict:
     """Kernel launches of one prefill: one per attention layer and one per
     Mamba2 layer; serving moves no KV pages through the page kernels."""
@@ -1044,6 +1034,8 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
                 depth=None):
     """`depth`: the decoder layers kept of the published config (None: all);
     the width is the published one."""
+    from tentbench.harness import grow
+
     cfg = get_config(arch).with_(use_pallas=True, remat="none")
     reduced = {}
     if depth is not None:
@@ -1073,7 +1065,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
                         "cache_shapes": {n: list(t.shape) for n, t in kv.items()}}
 
     # 2. the decode cache (K/V without a window padded to max_len)
-    cache = decode_cache(cfg, kv, max_len)
+    cache = grow(cfg, kv, max_len)
 
     # 3. ship it through TENT, with a rail flap over the flow
     engine = build_engine()
@@ -1084,10 +1076,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
         t0 = engine.fabric.now
         flap = engine.topology.rdma_nic(0, 1)
         engine.fabric.schedule_failure(flap.link_id, at=t0 + 0.002, recover_at=t0 + 0.02)
-        done = {}
-        dst, _ = server.ship_kv_async(data, lambda r: done.setdefault("res", r))
-        engine.run_until_idle()
-        res = done["res"]
+        dst, res = server.ship_kv(data)
         if not res.ok:
             raise AssertionError(f"KV handoff failed: {res.error}")
         if not res.completed_at > t0 + 0.002:
@@ -1113,7 +1102,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
         raise AssertionError(f"the {arch} main path launched {main_launches}, expected {want}")
 
     # 5. the same decode from the unshipped cache: identical tokens
-    local_cache = decode_cache(cfg, kv, max_len)
+    local_cache = grow(cfg, kv, max_len)
     local, local_ms = wall_ms(
         lambda: greedy_decode(cfg, params, local_cache, logits, prompt_len, n_new))
     if not np.array_equal(tokens, local):
@@ -1193,7 +1182,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
         raise AssertionError("server.generate tokens differ from monolithic_generate")
     # not gated: kernel prefill vs replay prefill on the same short prompts
     k_logits, k_cache = prefill_forward(cfg, params, short, **enc)
-    k_tokens = greedy_decode(cfg, params, decode_cache(cfg, k_cache, replay_len), k_logits,
+    k_tokens = greedy_decode(cfg, params, grow(cfg, k_cache, replay_len), k_logits,
                              REPLAY_PROMPT, REPLAY_NEW)
     steps["replay_generate"] = {
         "wall_ms": gen_ms, "kv_bytes": result.kv_bytes,
@@ -1240,10 +1229,12 @@ def _profiled(fn, top: int = 8) -> dict:
 def phase_profile(cfg, params, prompts, enc) -> dict:
     """Where a serve phase's time goes: one kernel prefill and eight greedy
     decode steps, each profiled once after a warm call."""
+    from tentbench.harness import grow
+
     prompt_len = prompts.shape[1]
     prefill = lambda: prefill_forward(cfg, params, prompts, **enc)  # noqa: E731
     logits, kv = prefill()
-    cache = decode_cache(cfg, kv, prompt_len + 9)
+    cache = grow(cfg, kv, prompt_len + 9)
     decode = lambda: greedy_decode(cfg, params, cache, logits, prompt_len, 9)  # noqa: E731
     decode()
     res = {"phase": "profile", "arch": cfg.name, "num_layers": cfg.num_layers,
@@ -1276,6 +1267,8 @@ def phase_sharded(cfg, params, prompts) -> dict:
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
 
+    from tentbench.harness import grow
+
     B, S = prompts.shape
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
@@ -1296,8 +1289,8 @@ def phase_sharded(cfg, params, prompts) -> dict:
                 prefill_launches, ep_calls = read_launches(), moe_mod.ep_calls
                 prefill_comm = {str(k): v for k, v in comm.get_comm_counts().items()}
                 dcache = {n: DTensor.from_local(t, mesh, cache[n].placements, run_check=False)
-                          for n, t in decode_cache(cfg, {n: c.to_local() for n, c in cache.items()},
-                                                   S + SHARDED_DECODE).items()}
+                          for n, t in grow(cfg, {n: c.to_local() for n, c in cache.items()},
+                                           S + SHARDED_DECODE).items()}
                 tok = torch.argmax(want_logits, -1)[:, None].to(torch.int32)
                 dtok = DTensor.from_local(tok, mesh, tok_pl, run_check=False)
                 steps = []
@@ -1307,7 +1300,7 @@ def phase_sharded(cfg, params, prompts) -> dict:
                     dtok = torch.argmax(out, -1)[:, None].to(torch.int32)
             main_launches = read_launches()
             all_comm = {str(k): v for k, v in comm.get_comm_counts().items()}
-            cache_plain = decode_cache(cfg, want_cache, S + SHARDED_DECODE)
+            cache_plain = grow(cfg, want_cache, S + SHARDED_DECODE)
             tok_plain, decode_errs = tok, []
             for i, out in enumerate(steps):
                 want, cache_plain = decode_step(cfg, params, cache_plain, tok_plain, S + i)

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core import Location, MemoryKind, TentEngine
+from ..core import BatchResult, Location, MemoryKind, TentEngine
 from ..core.segments import adoptable
 from ..models import decode_step, prefill
 from ..obs import spans as _spans
@@ -59,9 +59,9 @@ def _pinned(n: int) -> torch.Tensor:
     return torch.empty(n, dtype=torch.uint8, pin_memory=True)
 
 
-# leaves unpacked on a card at byte offsets that are a multiple of this are
-# views of the one transferred buffer; any other offset is a device copy, so
-# every leaf starts where a vectorised kernel may load it
+# leaves unpacked at byte offsets that are a multiple of this are views of
+# the one transferred buffer; any other offset is a copy on the leaf's
+# device, so every leaf starts where a vectorised kernel may load it
 _VIEW_ALIGN = 16
 
 
@@ -89,44 +89,26 @@ def tree_to_bytes(tree: Any) -> Tuple[np.ndarray, List[Tuple[tuple, str]]]:
 
 def bytes_to_tree(data: np.ndarray, like: Any) -> Any:
     """Inverse of `tree_to_bytes`: shapes, dtypes and devices from `like`.
-    When every leaf of `like` is on one card, `data` crosses to it in one
-    blocking transfer (one DMA where `data` is pinned, as a landed view's
-    `read` is) and each leaf is a view of its byte range there, with no host
-    copy. Otherwise each leaf's bytes are copied on the host before they
-    cross to its device; with spans on, those copies are `copy_ns` /
-    `copy_bytes`."""
-    rec = _spans.active
+    `data` crosses once to each device among the leaves (on a card one
+    blocking transfer, a DMA where `data` is pinned, as a landed view's
+    `read` is; on the CPU none), and each leaf is a view of its byte range
+    there, or a copy on that device where the range starts off
+    `_VIEW_ALIGN`. So leaves on the CPU alias `data`."""
     with _spans.span("serving.unpack"):
-        leaves = _leaves(like)
-        devices = {t.device for t in leaves}
-        if len(devices) == 1 and (device := devices.pop()).type == "cuda":
-            return _unflatten(like, _unpack_on_card(data, leaves, device))
+        raw = torch.from_numpy(data)
+        flat = {}
         out = []
         off = 0
-        for t in leaves:
+        for t in _leaves(like):
             nbytes = t.element_size() * t.numel()
-            t0 = rec.begin() if rec is not None else 0
-            leaf = np.array(data[off:off + nbytes], dtype=np.uint8)
-            if rec is not None:
-                rec.end(t0, "copy_ns", "copy_bytes", nbytes)
-            out.append(torch.from_numpy(leaf).to(t.device).view(t.dtype).reshape(t.shape))
+            if t.device not in flat:
+                flat[t.device] = raw.to(t.device)
+            piece = flat[t.device][off:off + nbytes]
+            if off % _VIEW_ALIGN:
+                piece = piece.clone()
+            out.append(piece.view(t.dtype).reshape(t.shape))
             off += nbytes
         return _unflatten(like, out)
-
-
-def _unpack_on_card(data: np.ndarray, leaves: List[torch.Tensor],
-                    device: torch.device) -> List[torch.Tensor]:
-    flat = torch.from_numpy(data).to(device)
-    out = []
-    off = 0
-    for t in leaves:
-        nbytes = t.element_size() * t.numel()
-        raw = flat[off:off + nbytes]
-        if off % _VIEW_ALIGN:
-            raw = raw.clone()
-        out.append(raw.view(t.dtype).reshape(t.shape))
-        off += nbytes
-    return out
 
 
 def greedy_decode(cfg: ModelConfig, params: Any, cache: Any,
@@ -224,6 +206,14 @@ class DisaggregatedServer:
         self.engine.on_batch_done(batch, landed)
         return out, batch
 
+    def ship_kv(self, data: np.ndarray) -> Tuple[Any, BatchResult]:
+        """Blocking KV handoff: `ship_kv_async`, then the engine driven until
+        that batch has landed (`TentEngine.wait`), as `transfer_sync` is to
+        `submit_transfer`. Returns (dst_segment, BatchResult), a failed
+        result included; both segments are released by then."""
+        dst, batch = self.ship_kv_async(data)
+        return dst, self.engine.wait(batch)
+
     def generate(self, prompt: torch.Tensor, n_new: int, max_len: int,
                  enc_frames: Optional[torch.Tensor] = None,
                  *, async_handoff: bool = False) -> DisaggResult:
@@ -250,12 +240,7 @@ class DisaggregatedServer:
             self.engine.run_until_idle()
             res = done["res"]
         else:
-            src, seg = self._stage_in(data)
-            dst = seg.view()
-            try:
-                res = self.engine.transfer_sync(src.segment_id, 0, seg.segment_id, 0, src.length)
-            finally:
-                self._release(src, seg)
+            dst, res = self.ship_kv(data)
         if not res.ok:
             raise RuntimeError(f"KV handoff failed: {res.error}")
         secs = self.engine.fabric.now - t0

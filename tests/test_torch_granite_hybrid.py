@@ -16,14 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from pd_handoff import pd_engine, ship
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config
-from repro_torch.core import TentEngine
 from repro_torch.models import (cache_shapes, decode_step, init_params, param_shapes,
                                 prefill_forward)
 from repro_torch.models import moe
 from repro_torch.models.common import swiglu
-from repro_torch.scenarios import get
-from repro_torch.serving import DisaggregatedServer, bytes_to_tree, greedy_decode, tree_to_bytes
+from repro_torch.serving import bytes_to_tree, greedy_decode, tree_to_bytes
 from tentbench.reference import granite_hybrid as ref
 from tentbench.reference.common import rel_err
 
@@ -73,18 +72,12 @@ def test_prefill_matches_the_reference(model, use_pallas):
     assert _caches_err(cache, want_cache) < 1e-5
 
 
-def _handoff(cfg: ModelConfig, params, cache: dict) -> dict:
-    """The cache through `tree_to_bytes`, a `TentEngine`'s
-    `ship_kv_async` under the PD scenario's fabric and `bytes_to_tree`."""
-    spec = get("disagg_prefill_decode")
-    eng = TentEngine(spec.topology.to_fabric_spec(),
-                     config=spec.engine.to_engine_config("tent"), seed=spec.seed)
+def _handoff(params, cache: dict) -> dict:
+    """The cache through `tree_to_bytes`, `ship_kv` on the PD scenario's
+    engine and `bytes_to_tree`."""
     data, _ = tree_to_bytes(cache)
-    done = {}
-    dst, _ = DisaggregatedServer(eng, cfg, params).ship_kv_async(
-        data, lambda res: done.setdefault("res", res))
-    eng.run_until_idle()
-    assert done["res"].ok
+    dst, res = ship(pd_engine(), data, params=params)
+    assert res.ok
     shipped = bytes_to_tree(dst.read(0, data.size), cache)
     assert all(torch.equal(shipped[n], cache[n]) for n in cache)
     return shipped
@@ -99,7 +92,7 @@ def test_handoff_and_decode_match_the_reference(model, use_pallas):
     cfg = _cfg(use_pallas)
     with torch.no_grad():
         logits, kv = prefill_forward(cfg, params, tokens)
-        shipped = _handoff(cfg, params, kv)
+        shipped = _handoff(params, kv)
         cache = {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, N_NEW)) if n in ("k", "v")
                  else t.clone() for n, t in shipped.items()}
         served = torch.as_tensor(greedy_decode(cfg, params, {n: t.clone() for n, t in

@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Location, MemoryKind, SegmentManager, TentEngine
+from pd_handoff import pd_engine, ship
+from repro_torch.core import Location, MemoryKind, SegmentManager
 from repro_torch.core.segments import Segment
 from repro_torch.obs import spans
-from repro_torch.scenarios import get
-from repro_torch.serving import DisaggregatedServer, bytes_to_tree, tree_to_bytes
+from repro_torch.serving import bytes_to_tree, tree_to_bytes
 
 HOST = Location(node=0, kind=MemoryKind.HOST_DRAM, device=0, numa=0)
 GPU0 = Location(node=0, kind=MemoryKind.DEVICE_HBM, device=0, numa=0)
@@ -32,34 +32,15 @@ def recorder():
     spans.detach()
 
 
-def _engine() -> TentEngine:
-    spec = get("disagg_prefill_decode")
-    return TentEngine(spec.topology.to_fabric_spec(),
-                      config=spec.engine.to_engine_config("tent"), seed=spec.seed)
-
-
 def _data(n: int, seed: int = 7) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
-
-
-def _ship(eng: TentEngine, data: np.ndarray, flap: bool = False):
-    """One handoff through `ship_kv_async`: (view, BatchResult, the
-    destination's buffer)."""
-    if flap:
-        v0 = eng.fabric.now
-        eng.fabric.schedule_failure(eng.topology.rdma_nic(0, 1).link_id,
-                                    at=v0 + 2e-4, recover_at=v0 + 2e-3)
-    server = DisaggregatedServer(eng, None, None)
-    done = {}
-    dst, _ = server.ship_kv_async(data, lambda res: done.setdefault("res", res))
-    eng.run_until_idle()
-    return dst, done["res"], dst.buffers[0].data
 
 
 def test_a_landed_view_reads_the_destination_in_place(recorder):
     data = _data(1 << 20)
     with recorder.request(keep=True) as root:
-        dst, res, landed = _ship(_engine(), data)
+        dst, res = ship(pd_engine(), data)
+        landed = dst.buffers[0].data
         got = dst.read(0, data.size)
         part = dst.read(4096, 1000)
     assert res.ok
@@ -106,9 +87,9 @@ def test_a_phantom_view_reads_zeros():
 
 def test_a_flapped_handoff_with_retried_slices_lands_byte_for_byte(recorder):
     data = _data(16 << 20, seed=3)
-    eng = _engine()
+    eng = pd_engine()
     with recorder.request(keep=True) as root:
-        dst, res, _ = _ship(eng, data, flap=True)
+        dst, res = ship(eng, data, flap=True)
     assert res.ok and eng.slices_retried > 0
     np.testing.assert_array_equal(dst.read(0, data.size), data)
     run = next(s for s in recorder.take(root.request) if s.name == "engine.run")
@@ -129,7 +110,7 @@ def test_a_transfer_within_one_segment_lands_as_the_copying_path(monkeypatch, n_
     init = _data(2_000_000, seed=5)
     landed = []
     for in_place in (True, False):
-        eng = _engine()
+        eng = pd_engine()
         if not in_place:
             monkeypatch.setattr(Segment, "read_in_place", Segment.read)
         seg = eng.register_segment(GPU0, init.size, init=init, n_buffers=n_buffers)
@@ -165,18 +146,15 @@ def test_a_landed_view_crosses_to_the_card_from_pinned_memory(recorder):
     tree = {"a": torch.randn(3, 5, 7, generator=g).to(torch.bfloat16).to(dev),
             "b": torch.randn(1 << 18, generator=g).to(dev),
             "c": torch.randn(13, generator=g).to(torch.bfloat16).to(dev)}
-    server = DisaggregatedServer(_engine(), None, {"w": torch.zeros(1, device=dev)})
     with recorder.request(keep=True) as root:
         data, _ = tree_to_bytes(tree)
-        done = {}
-        dst, _ = server.ship_kv_async(data, lambda res: done.setdefault("res", res))
-        server.engine.run_until_idle()
+        dst, res = ship(pd_engine(), data, params={"w": torch.zeros(1, device=dev)})
         got = dst.read(0, data.size)
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             flat = torch.from_numpy(got)
             back = bytes_to_tree(got, tree)
-    assert done["res"].ok
+    assert res.ok
     assert flat.is_pinned() and np.shares_memory(got, dst.buffers[0].data)
     for k in tree:
         assert back[k].device == dev and back[k].dtype == tree[k].dtype

@@ -4,9 +4,11 @@ lands (`SegmentManager.register(buffer=...)`, `DisaggregatedServer`).
 On the CPU: a segment over a caller's array aliases it and copies nothing;
 what cannot be adopted is refused; `ship_kv_async` deregisters both segments
 on a landed and on a failed batch while the destination it returned still
-reads, and the engine's records of the batch then hold none of its bytes;
-each handoff is the only one registered while in flight; mixed-dtype
-caches at unaligned offsets go through the server byte for byte. The test
+reads, and so does the blocking `ship_kv`, under a rail flap too; the
+engine's records of the batch then hold none of its bytes; each handoff is
+the only one registered while in flight; mixed-dtype caches at unaligned
+offsets go through the server byte for byte, with no host copy in
+`bytes_to_tree`, whose leaves are views at 16-byte offsets. The test
 marked `card` packs into pinned memory and unpacks on an NVIDIA card; it
 skips without one (`python -m pytest -m card tests/test_torch_kv_adoption.py`).
 """
@@ -18,12 +20,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import Location, MemoryKind, SegmentManager, TentEngine
+from pd_handoff import pd_engine, ship
+from repro_torch.core import Location, MemoryKind, SegmentManager
 from repro_torch.models import init_params
 from repro_torch.obs import spans
-from repro_torch.scenarios import get
 from repro_torch.serving import DisaggregatedServer, bytes_to_tree, tree_to_bytes
-from repro_torch.serving.disagg import _unpack_on_card
 
 HOST = Location(node=0, kind=MemoryKind.HOST_DRAM, device=0, numa=0)
 
@@ -33,12 +34,6 @@ def recorder():
     rec = spans.attach()
     yield rec
     spans.detach()
-
-
-def _engine() -> TentEngine:
-    spec = get("disagg_prefill_decode")
-    return TentEngine(spec.topology.to_fabric_spec(),
-                      config=spec.engine.to_engine_config("tent"), seed=spec.seed)
 
 
 def _mixed_tree(device="cpu", seed=5):
@@ -62,13 +57,6 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a.cpu().contiguous().view(torch.uint8),
                             b.cpu().contiguous().view(torch.uint8)))
-
-
-def _ship(server: DisaggregatedServer, data: np.ndarray):
-    done = {}
-    dst, _ = server.ship_kv_async(data, lambda res: done.setdefault("res", res))
-    server.engine.run_until_idle()
-    return dst, done["res"]
 
 
 def test_register_over_a_buffer_aliases_it_and_copies_nothing(recorder):
@@ -123,15 +111,36 @@ def test_register_refuses_what_it_cannot_adopt(case):
     assert mgr.live() == (0, 0)
 
 
-@pytest.mark.parametrize("fail", [False, True], ids=["landed", "failed"])
-def test_ship_kv_async_releases_both_segments_when_the_batch_lands(fail):
-    eng = _engine()
-    if fail:
-        now = eng.fabric.now
-        for lid in eng.fabric.links:
-            eng.fabric.schedule_failure(lid, at=now + 1e-4, recover_at=now + 1e6)
-    server = DisaggregatedServer(eng, None, None)
+def _fail_every_link(eng) -> None:
+    now = eng.fabric.now
+    for lid in eng.fabric.links:
+        eng.fabric.schedule_failure(lid, at=now + 1e-4, recover_at=now + 1e6)
+
+
+@pytest.mark.parametrize("case", ["landed", "failed", "blocking"])
+def test_ship_kv_async_releases_both_segments_when_the_batch_lands(case):
+    """`blocking`: `ship_kv` under a rail flap, then on a handoff that
+    fails, beside a segment of the caller's own that stays registered."""
+    eng = pd_engine()
     data = np.random.default_rng(2).integers(0, 256, 1 << 20, dtype=np.uint8)
+    if case == "blocking":
+        own = eng.register_segment(HOST, 4096)
+        before = eng.segments.live()
+        dst, res = ship(eng, data, flap=True)
+        assert res.ok and eng.slices_retried > 0 and eng.segments.live() == before
+        np.testing.assert_array_equal(dst.read(0, data.size), data)
+        _fail_every_link(eng)
+        dst, res = ship(eng, data)
+        assert not res.ok and res.error and eng.segments.live() == before
+        assert dst.read(0, data.size).shape == data.shape
+        with pytest.raises(KeyError):
+            eng.segments.get(dst.segment_id)
+        assert eng.segments.get(own.segment_id) is own
+        return
+    fail = case == "failed"
+    if fail:
+        _fail_every_link(eng)
+    server = DisaggregatedServer(eng, None, None)
     seen = []
     dst, _ = server.ship_kv_async(data, lambda res: seen.append((res.ok, eng.segments.live())))
     assert eng.segments.live() == (2, 2 * data.size)
@@ -150,9 +159,8 @@ def test_a_landed_handoff_leaves_its_bytes_to_the_caller_alone():
     """Once the batch has landed, neither the registry nor the engine's
     record of the batch holds the source or the destination's bytes: they
     are freed with the caller's last reference."""
-    server = DisaggregatedServer(_engine(), None, None)
     data = np.random.default_rng(3).integers(0, 256, 1 << 20, dtype=np.uint8)
-    dst, res = _ship(server, data)
+    dst, res = ship(pd_engine(), data)
     assert res.ok
     shipped = weakref.ref(data)
     landed = weakref.ref(dst.buffers[0].data)
@@ -165,11 +173,10 @@ def test_a_landed_handoff_leaves_its_bytes_to_the_caller_alone():
 def test_stage_in_copies_what_it_cannot_adopt(recorder):
     """A caller's strided view is copied into a segment of its own, and
     still arrives byte for byte."""
-    server = DisaggregatedServer(_engine(), None, None)
     base = np.random.default_rng(4).integers(0, 256, 1 << 18, dtype=np.uint8)
     data = base[::2]
     with recorder.request(keep=True) as root:
-        dst, res = _ship(server, data)
+        dst, res = ship(pd_engine(), data)
     assert res.ok
     np.testing.assert_array_equal(dst.read(0, data.size), data)
     stage = next(s for s in recorder.take(root.request) if s.name == "serving.stage_in")
@@ -180,7 +187,7 @@ def test_stage_in_copies_what_it_cannot_adopt(recorder):
 def test_every_served_handoff_is_the_only_one_registered(recorder, async_handoff):
     cfg = get_smoke_config("qwen2-0.5b").with_(remat="none")
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
-    server = DisaggregatedServer(_engine(), cfg, params)
+    server = DisaggregatedServer(pd_engine(), cfg, params)
     prompt = torch.from_numpy(
         np.random.default_rng(11).integers(0, cfg.vocab_size, (1, 12), dtype=np.int64))
     for _ in range(3):
@@ -197,26 +204,25 @@ def test_mixed_dtype_cache_round_trips_through_the_server_byte_exact(recorder):
     tree = _mixed_tree()
     data, metas = tree_to_bytes(tree)
     assert [m[1] for m in metas] == ["bfloat16", "float32", "bfloat16", "float32", "bfloat16"]
-    server = DisaggregatedServer(_engine(), None, None)
     with recorder.request(keep=True) as root:
-        dst, res = _ship(server, data)
+        dst, res = ship(pd_engine(), data)
         back = bytes_to_tree(dst.read(0, data.size), tree)
     assert res.ok
     for want, got in zip(_flat(tree), _flat(back)):
         assert _bits_equal(got, want)
     unpack = next(s for s in recorder.take(root.request) if s.name == "serving.unpack")
-    assert unpack.counters["copy_bytes"] == data.size
+    assert "copy_bytes" not in unpack.counters
 
 
 def test_unpack_views_aligned_leaves_and_copies_the_rest():
-    """The card's unpack, driven on the CPU: each leaf is its byte range of
-    the one transferred buffer, a view where the offset is a multiple of 16
-    and a copy elsewhere."""
+    """Each leaf is its byte range of the one buffer on its device (on the
+    CPU `data` itself), a view where the offset is a multiple of 16 and a
+    copy elsewhere."""
     tree = _mixed_tree()
     data, _ = tree_to_bytes(tree)
     flat = torch.from_numpy(data)
     leaves = _flat(tree)
-    out = _unpack_on_card(data, leaves, torch.device("cpu"))
+    out = _flat(bytes_to_tree(data, tree))
     off = 0
     for want, got in zip(leaves, out):
         assert _bits_equal(got, want)
@@ -231,12 +237,12 @@ def test_pinned_round_trip_on_a_card(recorder):
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda", 0)
     tree = _mixed_tree(dev)
-    server = DisaggregatedServer(_engine(), None, {"w": torch.zeros(1, device=dev)})
+    eng = pd_engine()
     with recorder.request(keep=True) as root:
         data, _ = tree_to_bytes(tree)
-        dst, res = _ship(server, data)
+        dst, res = ship(eng, data, params={"w": torch.zeros(1, device=dev)})
         back = bytes_to_tree(dst.read(0, data.size), tree)
-    assert res.ok and server.engine.segments.live() == (0, 0)
+    assert res.ok and eng.segments.live() == (0, 0)
     assert torch.from_numpy(data).is_pinned()
     assert torch.from_numpy(dst.buffers[0].data).is_pinned()
     for want, got in zip(_flat(tree), _flat(back)):
