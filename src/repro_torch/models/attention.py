@@ -16,7 +16,7 @@ decode step writes its K/V into the rank's own shard of the cache.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -249,20 +249,25 @@ def _local_kv(q, k, v, valid):
     return out.redistribute(mesh, q_pl)
 
 
-def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
-    """cache[:, slot] = new, in place. On a DTensor cache (B, W, K, Hd) the
-    write goes into the local shard of the rank that holds the slot: `new` is
-    brought to the cache's placements (W replicated) and written at the
-    slot's local index, so a cache sharded over its length stays in place."""
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """cache[:, slot] = new, in place, `slot` a (1,) index tensor on the
+    cache's device, so that no host reads it. On a DTensor cache (B, W, K,
+    Hd) the write goes into the local shard of the rank that holds the slot:
+    `new` is brought to the cache's placements (W replicated) and written at
+    the slot's local index, so a cache sharded over its length stays in
+    place; a rank whose shard lacks the slot writes its own entry back."""
     if not isinstance(cache, DTensor):
-        cache[:, slot:slot + 1] = new.to(cache.dtype)
+        cache.index_copy_(1, slot, new.to(cache.dtype))
         return
     mesh, pl = cache.device_mesh, cache.placements
     new = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p for p in pl]).to_local()
     shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
-    local, slot = cache.to_local(), slot - offset[1]
-    if 0 <= slot < shape[1]:
-        local[:, slot:slot + 1] = new.to(local.dtype)
+    if shape[1] == 0:
+        return
+    local, at = cache.to_local(), slot - offset[1]
+    held = (at >= 0) & (at < shape[1])
+    at = at.clamp(0, shape[1] - 1)
+    local.index_copy_(1, at, torch.where(held, new.to(local.dtype), local.index_select(1, at)))
 
 
 def cache_update(
@@ -270,7 +275,7 @@ def cache_update(
     v_cache: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     *,
     window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -280,13 +285,15 @@ def cache_update(
     Unlike the reference's functional update this mutates its arguments, so
     a decode step does not copy the whole cache. The slot is clamped to the
     last one as `jax.lax.dynamic_update_slice` clamps its start index.
+
+    `pos` is a 0-d integer tensor on the cache's device (an int is made
+    one): the slot and the mask are computed there and nothing waits for
+    the host, so the update can be captured in a CUDA graph and replayed
+    at the next position.
     """
-    W = k_cache.shape[1]
-    slot = min(pos % W if window > 0 else pos, W - 1)
+    pos, W = torch.as_tensor(pos, device=k_cache.device), k_cache.shape[1]
+    slot = (pos % W if window > 0 else pos).clamp(max=W - 1).reshape(1)
     _write_slot(k_cache, k_new, slot)
     _write_slot(v_cache, v_new, slot)
-    if pos >= W:  # after wrap every slot is live
-        valid = torch.ones(W, dtype=torch.bool, device=k_cache.device)
-    else:
-        valid = torch.arange(W, device=k_cache.device) <= pos
+    valid = torch.arange(W, device=k_cache.device) <= pos  # all live once pos >= W
     return k_cache, v_cache, valid

@@ -52,7 +52,7 @@ shards.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -619,21 +619,29 @@ def _mixer_step(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor, pos: int
+                token: torch.Tensor, pos: Union[int, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token for the whole (synchronized) batch: token (B, 1) at
     position `pos`. Writes the new K/V, conv buffers and SSM states into
     `cache` in place and returns (logits (B, V) fp32, cache). MoE layers
-    route the B tokens with the capacity of T = B."""
+    route the B tokens with the capacity of T = B.
+
+    `pos` is an int, or a 0-d int64 tensor on the cache's device. An int
+    becomes such a tensor first: RoPE and every cache write read the
+    position on the device and no host reads it, so the step can be
+    captured in a CUDA graph and replayed as the tensor advances
+    (`serving.greedy_decode`)."""
     with _spans.span("model.decode_step"):
-        return _decode_step(cfg, params, cache, token, int(pos))
+        return _decode_step(cfg, params, cache, token, pos)
 
 
 def _decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
-                 token: torch.Tensor, pos: int
+                 token: torch.Tensor, pos: Union[int, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     x = _scaled(_embed(params, token), cfg.embedding_multiplier)
-    positions = torch.full((1,), pos, device=x.device)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int64, device=x.device)
+    positions = pos.reshape(1)
     for p, kind, i in _layers(cfg, params["layers"]):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if _mixer_kind(cfg, kind) == "mamba":

@@ -19,9 +19,10 @@ change from run to run.
 `moe_ffn_dropless` drops nothing (`cfg.moe_capacity_factor` 0): the
 (token, expert) pairs sorted by expert, each expert's contiguous segment
 through its SwiGLU, by one grouped product a projection
-(`torch._grouped_mm`), with nothing read on the host. Experts that
-receive no pair are never read. The combine weighs each token's k rows
-and sums them in pick order, without atomics.
+(`torch._grouped_mm` in bf16, which never reads an expert that receives
+no pair; in other types one batched product over zero-padded per-expert
+buckets), with nothing read on the host. The combine weighs each token's
+k rows and sums them in pick order, without atomics.
 
 `moe_ffn_ep` is expert parallelism under a mesh (`repro_torch.sharding.
 ctx`), the reference's `shard_map` body on each rank's local tensors
@@ -254,14 +255,28 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, T: int, k: int,
 
 
 def segments_grouped(xs: torch.Tensor, counts: torch.Tensor, w_gate: torch.Tensor,
-                     w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+                     w_up: torch.Tensor, w_down: torch.Tensor, most: int) -> torch.Tensor:
     """SwiGLU of each expert's contiguous segment of xs (P, D), segment e
-    `counts[e]` rows long, by one grouped product a projection; nothing
-    waits for the host."""
+    `counts[e]` rows long and none longer than `most`; nothing waits for
+    the host, so a decode step that runs it can be captured in a CUDA
+    graph. In bf16, one grouped product a projection (`torch._grouped_mm`).
+    Its other types walk the groups on the host, reading the offsets there,
+    so in them the rows are put in zero-padded buckets (E, most, D), each
+    expert's rows in its own, and go through one batched product a
+    projection over the experts: memory O(E * most * (D + F)), the weights
+    read once."""
     offs = torch.cumsum(counts, 0, dtype=torch.int32)
-    g = torch._grouped_mm(xs, w_gate, offs=offs)
-    u = torch._grouped_mm(xs, w_up, offs=offs)
-    return torch._grouped_mm(F.silu(g) * u, w_down, offs=offs)
+    if xs.dtype == torch.bfloat16:
+        def mm(a, w):
+            return torch._grouped_mm(a, w, offs=offs)
+        return mm(F.silu(mm(xs, w_gate)) * mm(xs, w_up), w_down)
+    E, (P, D) = counts.shape[0], xs.shape
+    rows = torch.arange(P, dtype=torch.int32, device=xs.device)
+    expert = torch.searchsorted(offs, rows, right=True)
+    at = expert * most + rows - (offs - counts)[expert]
+    buckets = xs.new_zeros(E * most, D).index_copy_(0, at, xs).view(E, most, D)
+    h = F.silu(torch.bmm(buckets, w_gate)) * torch.bmm(buckets, w_up)
+    return torch.bmm(h, w_down).view(E * most, D)[at]
 
 
 def moe_ffn_dropless(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
@@ -277,7 +292,8 @@ def moe_ffn_dropless(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tens
     # a scatter, not `bincount`, which reads its input's max on the host
     counts = flat.new_zeros(cfg.num_experts).scatter_add_(0, flat, torch.ones_like(flat))
     xs = x[order // k]
-    ys = segments_grouped(xs, counts, p["w_gate"], p["w_up"], p["w_down"])
+    # a token picks an expert once, so no segment is longer than T
+    ys = segments_grouped(xs, counts, p["w_gate"], p["w_up"], p["w_down"], T)
     y = torch.empty_like(ys)
     y[order] = ys  # back to (token, pick) order
     out = (y.view(T, k, D) * weights.to(x.dtype)[..., None]).sum(1)

@@ -24,10 +24,12 @@ keys sorted), metas carrying numpy dtype names ("float32", "bfloat16").
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..core import BatchResult, Location, MemoryKind, TentEngine
@@ -114,14 +116,105 @@ def bytes_to_tree(data: np.ndarray, like: Any) -> Any:
 def greedy_decode(cfg: ModelConfig, params: Any, cache: Any,
                   last_logits: torch.Tensor, start: int, n_new: int) -> np.ndarray:
     """Greedy tokens (B, n_new) int32: the argmax of `last_logits`, then
-    n_new - 1 decode steps from position `start`. Updates `cache` in place."""
-    tok = torch.argmax(last_logits, dim=-1)[:, None].to(torch.int32)
+    n_new - 1 decode steps from position `start`. Updates `cache` in place.
+
+    The position lives on the device, a 0-d int64 tensor that each step
+    reads there. Where the call has two steps or more and every cache leaf
+    and `last_logits` is a plain (not DTensor) CUDA tensor on one card, the
+    first step runs eagerly and one CUDA graph of a step, captured over the
+    call's own cache, replays every later one (`_replayed`); otherwise each
+    step runs eagerly. The tokens reach the host once, at the end. With
+    spans on, a `serving.decode` span counts `graph_steps` and
+    `eager_steps`."""
+    tensors = _leaves(cache) + [last_logits]
+    one_card = (last_logits.is_cuda and not any(isinstance(t, DTensor) for t in tensors)
+                and len({t.device for t in tensors}) == 1)
+    steps = max(n_new - 1, 0)
+    with _spans.span("serving.decode") as sp:
+        tok = _next_token(last_logits)
+        pos = torch.full((), start, dtype=torch.int64, device=tok.device)
+        if one_card and steps >= 2:
+            out, replays = _replayed(cfg, params, cache, tok, pos, n_new), steps - 1
+        else:
+            out, replays = _eager(cfg, params, cache, tok, pos, steps), 0
+        if sp is not None:
+            sp.counters["graph_steps"] = replays
+            sp.counters["eager_steps"] = steps - replays
+        return out.cpu().numpy()
+
+
+def _next_token(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+
+def _eager(cfg, params, cache, tok, pos, steps: int) -> torch.Tensor:
+    """`steps` decode steps, each dispatched op by op: the tokens (B, 1 +
+    steps), `tok` first."""
     out = [tok]
-    for i in range(n_new - 1):
-        logits, cache = decode_step(cfg, params, cache, tok, start + i)
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    for _ in range(steps):
+        logits, cache = decode_step(cfg, params, cache, tok, pos)
+        tok = _next_token(logits)
         out.append(tok)
-    return torch.cat(out, dim=1).cpu().numpy()
+        pos = pos + 1
+    return torch.cat(out, dim=1)
+
+
+class _CardGraphs:
+    """What a card's decode calls capture with. The side stream they capture
+    and replay on: capture needs one other than the default stream, and
+    cuBLAS keeps a workspace for each stream it runs on. The one memory pool
+    every call's graph is captured into, so a call reuses the blocks of the
+    call before (whose graph never replays again). And the last graph,
+    held until the next capture has ended: dropping a pool's last graph
+    retires the pool, whose blocks stay reserved until `empty_cache` or a
+    failed allocation frees them, and a retired pool cannot take another
+    capture."""
+
+    def __init__(self, index: int):
+        self.stream = torch.cuda.Stream(device=index)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+
+@functools.cache
+def _card_graphs(index: int) -> _CardGraphs:
+    return _CardGraphs(index)
+
+
+def _replayed(cfg, params, cache, tok, pos, n_new: int) -> torch.Tensor:
+    """The tokens (B, n_new), `tok` first, on the card: one eager step at
+    `pos` (real work, which also warms cuBLAS and the allocator on the
+    side stream), then one CUDA graph captured over `cache` and three
+    static buffers (the token (B, 1), the position, the logits): a step,
+    the argmax into the token buffer and the position's increment. Capture
+    runs nothing; each of the n_new - 2 replays is one step, and one copy
+    puts its token into the output. The graph calls this module's
+    `decode_step` as the eager loop does. No copy of the cache is made; the
+    graph's memory is the card's one decode pool (`_CardGraphs`)."""
+    dev = tok.device
+    home = _card_graphs(dev.index)
+    out = torch.empty((tok.shape[0], n_new), dtype=torch.int32, device=dev)
+    home.stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(home.stream):
+        out[:, :1] = tok
+        logits, cache = decode_step(cfg, params, cache, tok, pos)
+        tok = _next_token(logits)
+        out[:, 1:2] = tok
+        pos += 1
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=home.pool, capture_error_mode="thread_local")
+        try:
+            logits, _ = decode_step(cfg, params, cache, tok, pos)
+            tok.copy_(torch.argmax(logits, dim=-1)[:, None])
+            pos += 1
+        finally:
+            graph.capture_end()
+        home.graph = graph
+        for j in range(2, n_new):
+            graph.replay()
+            out[:, j:j + 1] = tok
+    torch.cuda.current_stream(dev).wait_stream(home.stream)
+    return out
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """The aten ops that one `prefill_forward` and one `decode_step` of the
 qwen2-0.5b and mamba2-370m smoke configurations dispatch, by name, pinned
 to the counts measured before the model gained `layer_types`, the dropless
-MoE and the scalar multipliers (`fixtures/dispatch_counts.json`): those
-paths stay the paths the benchmark's cells measure, op for op."""
+MoE and the scalar multipliers (`fixtures/dispatch_counts.json`; a decode
+step's since it reads its position on the device, which writes a slot by
+`index_copy_`): those paths stay the paths the benchmark's cells measure,
+op for op."""
 import collections
 import json
 from pathlib import Path

@@ -197,13 +197,32 @@ def test_grouped_and_looped_segments_agree():
     w = [torch.randn(E, a, b, generator=gen).div(8) for a, b in ((D, F_), (D, F_), (F_, D))]
     counts = torch.tensor([5, 0, 9, 2])
     xs = torch.randn(16, D, generator=gen)
-    got = moe.segments_grouped(xs, counts, *w)
+    got = moe.segments_grouped(xs, counts, *w, most=9)  # buckets as long as the longest
     want, start = torch.empty_like(xs), 0
     for e, n in enumerate(counts.tolist()):
         seg = xs[start:start + n]
         want[start:start + n] = swiglu(seg, w[0][e], w[1][e], w[2][e])
         start += n
     assert rel_err(got, want) < 1e-6
+
+
+def test_grouped_segments_in_bf16_agree_with_the_loop():
+    """bf16 goes through `torch._grouped_mm` (f32, above, through zero-padded
+    per-expert buckets): each segment gets its own expert's SwiGLU, as
+    a loop over the experts in bf16 gives it, within bf16's tolerance."""
+    gen = torch.Generator().manual_seed(10)
+    E, D, F_ = 4, 64, 32
+    w = [torch.randn(E, a, b, generator=gen).div(8).to(torch.bfloat16)
+         for a, b in ((D, F_), (D, F_), (F_, D))]
+    counts = torch.tensor([3, 7, 0, 6])
+    xs = torch.randn(16, D, generator=gen).to(torch.bfloat16)
+    got = moe.segments_grouped(xs, counts, *w, most=7)
+    want, start = torch.empty_like(xs), 0
+    for e, n in enumerate(counts.tolist()):
+        seg = xs[start:start + n]
+        want[start:start + n] = swiglu(seg, w[0][e], w[1][e], w[2][e])
+        start += n
+    assert got.dtype == torch.bfloat16 and rel_err(got.float(), want.float()) < 2e-2
 
 
 def test_the_dropless_moe_has_no_capacity():

@@ -205,7 +205,7 @@ def test_decode_steps_each_open_a_span(recorder, smoke):
         cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4)) for k, v in kv.items()}
         greedy_decode(cfg, params, cache, logits, prompt.shape[1], 4)
     names = [s.name for s in recorder.take(root.request)]
-    assert names == [spans.REQUEST, "model.prefill"] + ["model.decode_step"] * 3
+    assert names == [spans.REQUEST, "model.prefill", "serving.decode"] + ["model.decode_step"] * 3
 
 
 def test_ranges_open_only_under_a_profiler(recorder, smoke):
