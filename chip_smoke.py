@@ -257,6 +257,8 @@ TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}  # tests/test_kernels.py:14-15
 SERVE_SHAPE = (4, 1024, 14, 2, 64)  # (B, S, H, K, D): qwen2-0.5b prefill below
 QWEN3_MOE_FLASH_SHAPE = (4, 1024, 64, 4, 128)  # qwen3-moe-235b-a22b prefill below
 SEAMLESS_FLASH_SHAPE = (4, 1024, 16, 16, 64)  # seamless-m4t-medium decoder prefill below
+# deepseek-v3's MLA prefill at 4,096 tokens: q/k heads of 192 (128 + 64 rope), v heads of 128
+MLA_FLASH_SHAPE, MLA_V_DIM = (1, 4096, 128, 128, 192), 128
 HYMBA_FLASH_SHAPE, HYMBA_WINDOW = (2, 3072, 25, 5, 64), 2048  # hymba-1.5b prefill
 # the reference's edge shapes, and S = 200 with D = 128 (not a multiple of
 # the 64-key tile, the wide head's two column halves)
@@ -476,13 +478,15 @@ def _bound(flops, nbytes, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_bound(B, S, H, K, D, dtype, window=0):
-    """Least time for causal attention on these inputs: 4*D flops per live
-    (query, key) pair against q, k, v, o moved once. Returns (ms, bound_by)."""
+def flash_bound(B, S, H, K, D, dtype, window=0, dv=None):
+    """Least time for causal attention on these inputs: 2 (D + Dv) flops per
+    live (query, key) pair (4 D where v's head dim Dv is D) against q, k, v,
+    o moved once. Returns (ms, bound_by)."""
+    dv = dv or D
     q = np.arange(S)
     live = q + 1 if window <= 0 else np.minimum(q + 1, window)
-    flops = 4.0 * D * float(live.sum()) * B * H
-    nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * torch.finfo(dtype).bits // 8
+    flops = 2.0 * (D + dv) * float(live.sum()) * B * H
+    nbytes = (B * S * H * (D + dv) + B * S * K * (D + dv)) * torch.finfo(dtype).bits // 8
     return _bound(flops, nbytes, dtype)
 
 
@@ -570,21 +574,23 @@ def _agree(name, out, ref, dtype):
     return bool((err <= tol + tol * ref.float().abs()).all()), err.max().item()
 
 
-def _qkv(shape, dtype, seed):
+def _qkv(shape, dtype, seed, dv=None):
     B, S, H, K, D = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
-    return mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, D)
+    return mk(B, S, H, D), mk(B, S, K, D), mk(B, S, K, dv or D)
 
 
-def _check_case(shape, dtype, window, seed):
-    q, k, v = _qkv(shape, dtype, seed)
+def _check_case(shape, dtype, window, seed, dv=None):
+    q, k, v = _qkv(shape, dtype, seed, dv)
     out = flash_attention(q, k, v, causal=True, window=window)
     ref = flash_attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     ok, err = _agree(f"flash attention {shape} {dtype}", out, ref, dtype)
     case = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
             "window": window, "max_abs_err": err, "tol": TOL[dtype]}
+    if dv:
+        case["v_head_dim"] = dv
     if not ok:
         raise AssertionError(f"flash attention disagrees with its plain version: {case}")
     return case, (q, k, v)
@@ -638,11 +644,11 @@ def _check_ssd_mixed(shape, seed):
     return case
 
 
-def _flash_timing(shape, dtype, case, window=0):
-    q, k, v = _qkv(shape, dtype, seed=1)
+def _flash_timing(shape, dtype, case, window=0, dv=None):
+    q, k, v = _qkv(shape, dtype, seed=1, dv=dv)
     B, S, H, K, D = shape
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    bound, bound_by = flash_bound(B, S, H, K, D, dtype, window)
+    bound, bound_by = flash_bound(B, S, H, K, D, dtype, window, dv)
     if window:
         # SDPA has no window argument: the causal band goes in as a boolean mask
         pos = torch.arange(S, device="cuda")
@@ -814,6 +820,10 @@ def phase_kernels() -> dict:
             case, _ = _check_case(shape, dtype, 0, seed=1)
             fa_cases.append(case)
             timing["flash_attention"][f"{dt}_{key}"] = _flash_timing(shape, dtype, case)
+        case, _ = _check_case(MLA_FLASH_SHAPE, dtype, 0, seed=1, dv=MLA_V_DIM)
+        fa_cases.append(case)
+        timing["flash_attention"][f"{dt}_mla"] = _flash_timing(MLA_FLASH_SHAPE, dtype, case,
+                                                               dv=MLA_V_DIM)
         for shape in (SSD_SERVE_SHAPE, SSD_HYMBA_SHAPE):
             case, inputs = _check_ssd(shape, dtype, seed=4)
             ssd_cases.append(case)

@@ -46,6 +46,7 @@ ARCH_ALIASES.update(
         # served and benchmarked, not in ARCH_IDS: the JAX package has no
         # counterpart to hold it against
         "granite-4.0-h-small": "granite_4_0_h_small",
+        "deepseek-v3": "deepseek_v3",
     }
 )
 
@@ -67,6 +68,24 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25  # 0 = dropless: every (token, expert) pair computed
     shared_d_ff: int = 0  # width of a shared SwiGLU expert every token passes; 0 = none
+    # routing: "softmax" (top k of the softmax) or "sigmoid" (DeepSeek-V3's: top k
+    # of sigmoid + a bias that steers the choice only, within the best
+    # `topk_group` of `n_group` groups); gates renormalized over the picks
+    # when `norm_topk_prob`, then times `routed_scaling_factor`
+    router_scoring: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    # the first `first_k_dense` layers take a dense SwiGLU of `dense_d_ff` in
+    # place of the MoE FFN
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    # an expert share: the layer holds `num_experts` experts, [first_expert,
+    # first_expert + num_experts) of the router's `router_experts` (0 = all);
+    # pairs routed elsewhere add nothing here
+    first_expert: int = 0
+    router_experts: int = 0
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -84,6 +103,22 @@ class ModelConfig:
     sliding_window: int = 0  # 0 = full causal; >0 = sliding-window (serving)
     rope_theta: float = 1e4
     nope: bool = False  # no positional encoding in attention (no rotary)
+    # multi-head latent attention (DeepSeek-V3's MLA) where kv_lora_rank > 0:
+    # low-rank q and kv paths, heads of qk_nope_head_dim + qk_rope_head_dim
+    # for q/k and v_head_dim for v, one decoupled rope key shared by all heads;
+    # the cache holds the latent ("v") and the roped key ("k")
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN rope scaling; factor 1 = plain rope
+    yarn_factor: float = 1.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 1.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     # scalar multipliers (Granite's); each at its default launches nothing
@@ -101,12 +136,43 @@ class ModelConfig:
         if self.is_encdec and scaled:
             raise ValueError(f"{self.name}: the encoder and cross-attention take no "
                              "residual_multiplier or attention_multiplier")
+        if self.mla and (self.q_lora_rank <= 0 or self.layer_types or self.hybrid):
+            raise ValueError(f"{self.name}: MLA takes a q_lora_rank and every layer's mixer")
+        if self.first_k_dense and not (self.mla and self.num_experts):
+            raise ValueError(f"{self.name}: a dense prefix (first_k_dense) takes an MLA MoE model")
+        if self.router_scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"{self.name}: router_scoring {self.router_scoring!r}")
+        if self.router_scoring == "softmax" and not self.norm_topk_prob:
+            raise ValueError(f"{self.name}: the softmax router renormalizes its picks")
+        if self.num_experts and (self.n_router % self.n_group or self.topk_group > self.n_group
+                                 or self.first_expert + self.num_experts > self.n_router):
+            raise ValueError(f"{self.name}: experts [{self.first_expert}, "
+                             f"{self.first_expert + self.num_experts}) of {self.n_router} "
+                             f"in {self.n_group} groups, {self.topk_group} kept")
+        if self.num_experts and not self.dropless and (
+                self.router_scoring != "softmax" or self.expert_share):
+            raise ValueError(f"{self.name}: the sigmoid router and an expert share run "
+                             "on the dropless MoE (moe_capacity_factor 0)")
 
     @property
     def resolved_head_dim(self) -> int:
         if self.num_heads == 0:  # attention-free
             return 0
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def n_router(self) -> int:
+        """The router's width: every expert, held here or not."""
+        return self.router_experts or self.num_experts
+
+    @property
+    def expert_share(self) -> bool:
+        """Whether the MoE layers hold only some of the router's experts."""
+        return self.n_router != self.num_experts
 
     @property
     def ssm_d_inner(self) -> int:
@@ -149,6 +215,8 @@ class ModelConfig:
     def param_count(self, *, active_only: bool = False) -> int:
         if self.layer_types:
             return self._param_count_by_kind(active_only)
+        if self.mla:
+            return self._param_count_mla(active_only)
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         H, K, Hd = self.num_heads, self.num_kv_heads, self.resolved_head_dim
         n = V * D  # embedding
@@ -179,6 +247,23 @@ class ModelConfig:
             xattn = L * (D * H * Hd + 2 * D * K * Hd + H * Hd * D + D)
             n += enc + xattn
         return n
+
+    def _param_count_mla(self, active_only: bool) -> int:
+        """Every leaf of an MLA model: the mixer and norms over all layers,
+        the dense FFN over the first `first_k_dense`, the (held) experts,
+        router and shared expert over the rest."""
+        D, V, L, H = self.d_model, self.vocab_size, self.num_layers, self.num_heads
+        qr, r, dr = self.q_lora_rank, self.kv_lora_rank, self.qk_rope_head_dim
+        dq, dv = self.qk_nope_head_dim + dr, self.v_head_dim
+        mla = D * qr + qr + qr * H * dq + D * (r + dr) + r + r * H * (self.qk_nope_head_dim + dv)
+        mla += H * dv * D
+        e = min(self.experts_per_token, self.num_experts) if active_only else self.num_experts
+        moe = D * self.n_router + e * 3 * D * self.d_ff + 3 * D * self.shared_d_ff
+        if self.router_scoring == "sigmoid":
+            moe += self.n_router  # the choice's bias
+        n = V * D * (1 if self.tie_embeddings else 2) + D
+        n += L * (2 * D + mla) + self.first_k_dense * 3 * D * self.dense_d_ff
+        return n + (L - self.first_k_dense) * moe
 
     def _param_count_by_kind(self, active_only: bool) -> int:
         """Every leaf of a `layer_types` model: each mixer over its own

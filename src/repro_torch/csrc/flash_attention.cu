@@ -4,10 +4,13 @@
 // repro/kernels/flash_attention/kernel.py::flash_attention_bhsd (body
 // `_flash_kernel`).
 //
-// Layout: q (B, S, H, D), k/v (B, S, K, D), o (B, S, H, D), read and written
-// through element strides (the last dimension contiguous, every row 16-byte
-// aligned), so the caller needs no transpose and no padding. H % K == 0; the
-// kv head of query head h is h / (H / K). D is 64 or 128.
+// Layout: q (B, S, H, D), k (B, S, K, D), v (B, S, K, Dv), o (B, S, H, Dv),
+// read and written through element strides (the last dimension contiguous,
+// every row 16-byte aligned), so the caller needs no transpose and no
+// padding. H % K == 0; the kv head of query head h is h / (H / K). (D, Dv) is
+// (64, 64), (128, 128), or (192, 128), MLA's prefill (DeepSeek-V3: q/k heads
+// of 128 no-rope + 64 rope dims, v heads of 128): each body takes D_qk and
+// D_v as two template dims.
 //
 // Both bodies compute what the Pallas kernel does: causal attention with an
 // optional sliding window (kpos > qpos - window), keys past S masked, an fp32
@@ -29,8 +32,8 @@
 //   * S = Q K^T with `wgmma.mma_async.m64n64k16.f32.bf16.bf16`, Q and K from
 //     shared memory in the 128-byte-swizzled K-major layout the descriptors
 //     name (a row of 64 bf16 is 128 bytes; D = 128 is two such column
-//     halves). A bf16 x bf16 product is exact in fp32, so S matches the
-//     reference's upcast dot up to summation order.
+//     halves, D = 192 three). A bf16 x bf16 product is exact in fp32, so S
+//     matches the reference's upcast dot up to summation order.
 //   * The online softmax runs on the accumulator fragments in registers:
 //     each row lives in the 4 threads of a quad, so a row max or sum is two
 //     shuffles; the output is rescaled only when some row's max moved.
@@ -58,7 +61,8 @@
 //     sum is four shuffles. P goes through shared memory within the
 //     half-warp that wrote it.
 //   * K/V tiles are double-buffered with cp.async: tile t+1 is copied while
-//     tile t is computed.
+//     tile t is computed. At (192, 128) two buffers do not fit a block's
+//     shared memory; one is used, each tile copied after the last is read.
 //
 // The bound on H100 is in kernel.py's note beside the launch.
 
@@ -112,11 +116,13 @@ constexpr int PF = 2;           // kv tiles in flight ahead of the one in use
 constexpr int STAGES = PF + 1;  // K/V ring
 constexpr int THREADS = 128 * WGS;
 
-template <int D>
+template <int DK, int DV>
 struct Smem {
-  static constexpr int Q_BYTES = ROWS * D * 2;
-  static constexpr int TILE_BYTES = BK * D * 2;  // one K or one V tile
-  static constexpr int BYTES = Q_BYTES + STAGES * 2 * TILE_BYTES + 1024;  // + alignment
+  static constexpr int Q_BYTES = ROWS * DK * 2;
+  static constexpr int K_BYTES = BK * DK * 2;  // one K tile
+  static constexpr int V_BYTES = BK * DV * 2;  // one V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + alignment
 };
 
 // A thread's share of copying a (TILE_ROWS x D) bf16 tile into shared
@@ -215,17 +221,17 @@ __device__ __forceinline__ void softmax(float (&s)[32], float (&m)[2], float (&l
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(THREADS, DK == 64 ? 2 : 1)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                Strides qs, Strides ks, Strides vs, Strides os, int group, int S,
                int window, int causal, float sl2e) {
-  using SM = Smem<D>;
+  using SM = Smem<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sKV = base + SM::Q_BYTES;  // stage s: K at 2s, V at 2s + 1 tiles
+  const uint32_t sKV = base + SM::Q_BYTES;  // stage s: its K tile, then its V tile
 
   const int q0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // heaviest first
   const int h = blockIdx.x, b = blockIdx.y;
@@ -243,36 +249,37 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   int t_begin, t_end;
   kv_range(q0, min(q0 + ROWS, S) - 1, S, BK, window, causal, t_begin, t_end);
-  const Share<D, BK> kshare(tid, ks.s), vshare(tid, vs.s);
+  const Share<DK, BK> kshare(tid, ks.s);
+  const Share<DV, BK> vshare(tid, vs.s);
   // the copy of kv tile t_begin + it into its stage, as one commit group
   auto fetch = [&](int it) {
     const int pos = (t_begin + it) * BK;
     if (pos < t_end * BK) {
-      const uint32_t st = sKV + (it % STAGES) * 2 * SM::TILE_BYTES;
+      const uint32_t st = sKV + (it % STAGES) * SM::STAGE_BYTES;
       kshare.copy(st, kb, kb + pos * ks.s, pos, S);
-      vshare.copy(st + SM::TILE_BYTES, vb, vb + pos * vs.s, pos, S);
+      vshare.copy(st + SM::K_BYTES, vb, vb + pos * vs.s, pos, S);
     }
     cp_async_commit();
   };
 
   // prologue: Q and the first PF kv tiles, one commit group each
   {
-    const Share<D, ROWS> qshare(tid, qs.s);
+    const Share<DK, ROWS> qshare(tid, qs.s);
     qshare.copy(sQ, qb, qb + q0 * qs.s, q0, S);
   }
 #pragma unroll
   for (int i = 0; i < PF; ++i) fetch(i);
 
   // descriptors: this warpgroup's Q rows, and K / V of stage 0 (K-major
-  // Q and K; V MN-major, its D halves BK * 128 bytes apart, its 8-key
+  // Q and K; V MN-major, its Dv halves BK * 128 bytes apart, its 8-key
   // groups 1024)
   const uint64_t dq = desc(sQ + wgi * (BQ * 128), 16, 1024);
   const uint64_t dk = desc(sKV, 16, 1024);
-  const uint64_t dv = desc(sKV + SM::TILE_BYTES, BK * 128, 1024);
+  const uint64_t dv = desc(sKV + SM::K_BYTES, BK * 128, 1024);
 
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   uint32_t pa[BK / 16][4];  // P in bf16 as the register A operand
 
@@ -284,16 +291,16 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     // does the tile hold a live key for this warpgroup's rows? (uniform)
     const bool live = (!causal || k0 <= qw0 + BQ - 1) &&
                       (window <= 0 || k0 + BK - 1 > qw0 - window);
-    const uint64_t dks = dk + (it % STAGES) * (2 * SM::TILE_BYTES / 16);
-    const uint64_t dvs = dv + (it % STAGES) * (2 * SM::TILE_BYTES / 16);
+    const uint64_t dks = dk + (it % STAGES) * (SM::STAGE_BYTES / 16);
+    const uint64_t dvs = dv + (it % STAGES) * (SM::STAGE_BYTES / 16);
     float s[32];
     if (live) {
-      // S = Q K^T over D in steps of 16 (32 bytes along a 128-byte row; the
-      // second half of D = 128 is the next column half)
+      // S = Q K^T over D in steps of 16 (32 bytes along a 128-byte row; each
+      // further 64 columns of D are the next column half)
       wg_fence();
       wgmma_ss_n64_first(s, dq, dks);
 #pragma unroll
-      for (int kk = 1; kk < D / 16; ++kk)
+      for (int kk = 1; kk < DK / 16; ++kk)
         wgmma_ss_n64(s, dq + ((kk / 4) * (ROWS * 128) + (kk % 4) * 32) / 16,
                      dks + ((kk / 4) * (BK * 128) + (kk % 4) * 32) / 16);
       wg_commit();
@@ -309,7 +316,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     softmax(s, m, l, corr, masked, k0, row0, col0, S, window, causal, sl2e);
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < DV / 8; ++c)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           acc[4 * c + 2 * r] *= corr[r];
@@ -324,7 +331,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     // O += P V over the tile's keys, 16 at a time (16 rows of V = 2048 bytes)
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) pv<D>(acc, pa[kk], dvs + kk * (2048 / 16));
+    for (int kk = 0; kk < BK / 16; ++kk) pv<DV>(acc, pa[kk], dvs + kk * (2048 / 16));
     wg_commit();
     wg_wait<0>();
     hold(acc);
@@ -339,7 +346,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     const float denom = l[r] == 0.f ? 1.f : l[r];
     __nv_bfloat16* orow = o + b * os.b + (long long)row * os.s + h * os.h + col0;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
           __floats2bfloat162_rn(acc[4 * c + 2 * r] / denom, acc[4 * c + 2 * r + 1] / denom);
   }
@@ -355,10 +362,16 @@ constexpr int BK = 64;
 constexpr int THREADS = 256;
 constexpr int PP = BK + 16;  // P row pitch (floats): the two rows of a warp on other banks
 
-template <int D>
+constexpr int MAX_SMEM = 227 * 1024;  // a block's dynamic shared memory on sm_90
+
+template <int DK, int DV>
 struct Smem {
-  static constexpr int P = D + 4;  // Q/K/V row pitch (floats), 16-byte aligned
-  static constexpr int FLOATS = BQ * P + 2 * 2 * BK * P + BQ * PP;
+  static constexpr int PK = DK + 4;  // Q/K row pitch (floats), 16-byte aligned
+  static constexpr int PV = DV + 4;  // V row pitch
+  static constexpr int TILE = BK * (PK + PV);  // one K tile and its V tile
+  // K/V buffers: two where they fit beside Q and P, else one
+  static constexpr int BUFS = (BQ * PK + 2 * TILE + BQ * PP) * 4 <= MAX_SMEM ? 2 : 1;
+  static constexpr int FLOATS = BQ * PK + BUFS * TILE + BQ * PP;
   static constexpr int BYTES = FLOATS * 4;
 };
 
@@ -366,27 +379,29 @@ template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
                                           int pos0, int S, int tid) {
   constexpr int CHUNKS = D / 4;  // 16-byte chunks a row
+  constexpr int P = D + 4;       // the row pitch in shared memory
 #pragma unroll
   for (int i = tid; i < ROWS * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, cc = i % CHUNKS;
     const int pos = pos0 + r;
     const bool valid = pos < S;
-    cp_async16(smem_u32(dst + r * Smem<D>::P + cc * 4),
+    cp_async16(smem_u32(dst + r * P + cc * 4),
                src + (long long)(valid ? pos : 0) * row_stride + cc * 4, valid);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(THREADS, DK == 64 ? 2 : 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Strides qs, Strides ks,
               Strides vs, Strides os, int group, int S, int window, int causal, float sl2e) {
-  constexpr int P = Smem<D>::P;
-  constexpr int NC = D / 64;  // column quads of O a thread owns
+  using SM = Smem<DK, DV>;
+  constexpr int PK = SM::PK, PV = SM::PV;
+  constexpr int NC = DV / 64;  // column quads of O a thread owns
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sKV = sQ + BQ * P;  // buffer u: K at 2u, V at 2u + 1 tiles
-  float* sP = sKV + 2 * 2 * BK * P;
+  float* sKV = sQ + BQ * PK;  // buffer u: its K tile, then its V tile
+  float* sP = sKV + SM::BUFS * SM::TILE;
 
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest first
   const int h = blockIdx.x, b = blockIdx.y;
@@ -401,9 +416,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   int t_begin, t_end;
   kv_range(q0, min(q0 + BQ, S) - 1, S, BK, window, causal, t_begin, t_end);
 
-  load_tile<D, BQ>(sQ, qb, qs.s, q0, S, tid);
-  load_tile<D, BK>(sKV, kb, ks.s, t_begin * BK, S, tid);
-  load_tile<D, BK>(sKV + BK * P, vb, vs.s, t_begin * BK, S, tid);
+  load_tile<DK, BQ>(sQ, qb, qs.s, q0, S, tid);
+  load_tile<DK, BK>(sKV, kb, ks.s, t_begin * BK, S, tid);
+  load_tile<DV, BK>(sKV + BK * PK, vb, vs.s, t_begin * BK, S, tid);
   cp_async_commit();
 
   float acc[4][NC][4];
@@ -418,16 +433,21 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
 
   for (int t = t_begin, it = 0; t < t_end; ++t, ++it) {
-    if (t + 1 < t_end) {  // the next tile into the other buffer
-      float* nb = sKV + ((it + 1) % 2) * 2 * BK * P;
-      load_tile<D, BK>(nb, kb, ks.s, (t + 1) * BK, S, tid);
-      load_tile<D, BK>(nb + BK * P, vb, vs.s, (t + 1) * BK, S, tid);
+    if (SM::BUFS == 2) {
+      if (t + 1 < t_end) {  // the next tile into the other buffer
+        float* nb = sKV + ((it + 1) % 2) * SM::TILE;
+        load_tile<DK, BK>(nb, kb, ks.s, (t + 1) * BK, S, tid);
+        load_tile<DV, BK>(nb + BK * PK, vb, vs.s, (t + 1) * BK, S, tid);
+      }
+    } else if (it > 0) {  // one buffer: tile t, now that tile t - 1 is consumed
+      load_tile<DK, BK>(sKV, kb, ks.s, t * BK, S, tid);
+      load_tile<DV, BK>(sKV + BK * PK, vb, vs.s, t * BK, S, tid);
     }
     cp_async_commit();
-    cp_async_wait<1>();  // tile t has landed for this thread
-    __syncthreads();     // ... for every thread
-    const float* sK = sKV + (it % 2) * 2 * BK * P;
-    const float* sV = sK + BK * P;
+    cp_async_wait<SM::BUFS - 1>();  // tile t has landed for this thread
+    __syncthreads();                // ... for every thread
+    const float* sK = sKV + (it % SM::BUFS) * SM::TILE;
+    const float* sV = sK + BK * PK;
     const int k0 = t * BK;
 
     // S micro-tile: rows ty + 16 i, keys tx + 16 j
@@ -437,12 +457,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DK; d += 4) {
       float4 qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * P + d);
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * PK + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * P + d);
+      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * PK + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -502,7 +522,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         float4 vv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          vv[e] = *reinterpret_cast<const float4*>(sV + (kk + e) * P + 64 * c + 4 * tx);
+          vv[e] = *reinterpret_cast<const float4*>(sV + (kk + e) * PV + 64 * c + 4 * tx);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float pe[4] = {pv[i].x, pv[i].y, pv[i].z, pv[i].w};
@@ -565,11 +585,12 @@ cudaError_t launch(Kernel kernel, unsigned long long& configured, int smem, int 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. D is 64 or 128; scale_dim is the head
-// dim whose 1/sqrt sets the softmax scale (D itself, or the true head dim of
-// inputs zero-padded up to D). Strides are in elements, (batch, seq, head)
-// for each of q, k, v, o; the head_dim stride must be 1 and every row must
-// start 16-byte aligned. Returns a cudaError_t (0 on success); a launch
+// dtype: 0 = float32, 1 = bfloat16. (D, Dv), the head dims of q/k and of
+// v/o, is (64, 64), (128, 128) or (192, 128); scale_dim is the head dim whose
+// 1/sqrt sets the softmax scale (D itself, or the true head dim of inputs
+// zero-padded up to D). Strides are in elements, (batch, seq, head) for each
+// of q, k, v, o; the head_dim stride must be 1 and every row must start
+// 16-byte aligned. Returns a cudaError_t (0 on success); a launch
 // the card refuses returns its error. Allocates nothing and does not
 // synchronize.
 extern "C" int flash_attention_fwd(
@@ -578,7 +599,7 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int B, int H, int K, int S, int D, int window, int causal, int scale_dim,
+    int B, int H, int K, int S, int D, int Dv, int window, int causal, int scale_dim,
     int dtype, void* stream) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0 || scale_dim <= 0 || scale_dim > D)
     return (int)cudaErrorInvalidValue;
@@ -586,19 +607,21 @@ extern "C" int flash_attention_fwd(
       os{o_sb, o_ss, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  static unsigned long long configured[4] = {0, 0, 0, 0};
-#define FA_LAUNCH(i, T, KERNEL, SMEM, ROWS, THREADS)                                        \
-  return (int)launch<decltype(&KERNEL), T>(KERNEL, configured[i], SMEM, ROWS, THREADS, q, k, v, \
-                                           o, qs, ks, vs, os, B, H, K, S, scale_dim, window, \
-                                           causal, st)
-  if (dtype == 0 && D == 64)
-    FA_LAUNCH(0, float, f32::flash_fwd_f32<64>, f32::Smem<64>::BYTES, f32::BQ, f32::THREADS);
-  if (dtype == 0 && D == 128)
-    FA_LAUNCH(1, float, f32::flash_fwd_f32<128>, f32::Smem<128>::BYTES, f32::BQ, f32::THREADS);
-  if (dtype == 1 && D == 64)
-    FA_LAUNCH(2, bf16, wg::flash_fwd_bf16<64>, wg::Smem<64>::BYTES, wg::ROWS, wg::THREADS);
-  if (dtype == 1 && D == 128)
-    FA_LAUNCH(3, bf16, wg::flash_fwd_bf16<128>, wg::Smem<128>::BYTES, wg::ROWS, wg::THREADS);
+  static unsigned long long configured[6] = {0, 0, 0, 0, 0, 0};
+#define FA_LAUNCH(i, T, NS, KERNEL, DK, DV, ROWS)                                           \
+  return (int)launch<decltype(&NS::KERNEL<DK, DV>), T>(                                     \
+      NS::KERNEL<DK, DV>, configured[i], NS::Smem<DK, DV>::BYTES, ROWS, NS::THREADS, q, k, v, o, \
+      qs, ks, vs, os, B, H, K, S, scale_dim, window, causal, st)
+  if (dtype == 0 && D == 64 && Dv == 64) FA_LAUNCH(0, float, f32, flash_fwd_f32, 64, 64, f32::BQ);
+  if (dtype == 0 && D == 128 && Dv == 128)
+    FA_LAUNCH(1, float, f32, flash_fwd_f32, 128, 128, f32::BQ);
+  if (dtype == 0 && D == 192 && Dv == 128)
+    FA_LAUNCH(4, float, f32, flash_fwd_f32, 192, 128, f32::BQ);
+  if (dtype == 1 && D == 64 && Dv == 64) FA_LAUNCH(2, bf16, wg, flash_fwd_bf16, 64, 64, wg::ROWS);
+  if (dtype == 1 && D == 128 && Dv == 128)
+    FA_LAUNCH(3, bf16, wg, flash_fwd_bf16, 128, 128, wg::ROWS);
+  if (dtype == 1 && D == 192 && Dv == 128)
+    FA_LAUNCH(5, bf16, wg, flash_fwd_bf16, 192, 128, wg::ROWS);
 #undef FA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

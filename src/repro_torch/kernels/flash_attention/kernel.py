@@ -27,9 +27,12 @@ Both skip the kv tiles the causal mask and the window rule out, so they do
 only the causal half's flops (plus the diagonal tiles' masked half), and
 take the heaviest q tiles first.
 
-The kernels are built for head dims 64 and 128. Any other D up to 128 (the
-reference's limit) is zero-padded up to the next of the two, which leaves
-Q K^T exact; the softmax scale stays the true D's, and the padded output
+The kernels are built for head dims 64 and 128, and for MLA's q/k head dim
+192 with a v head dim of 128 (DeepSeek-V3's prefill: 2 (192 + 128) flops a
+live pair and head, operations-bound in both types). Any other D up to 128
+(the reference's limit), or q/k and v dims that fit a built pair, are
+zero-padded up to the smallest built pair that holds them, which leaves Q
+K^T exact; the softmax scale stays the true D's, and the padded output
 columns are dropped.
 """
 from __future__ import annotations
@@ -52,7 +55,8 @@ __torch_twins__ = {"flash_attention": (
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# (q/k head dim, v head dim) pairs the kernels are built for, smallest first
+_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (192, 128))
 _lib = None
 
 
@@ -63,7 +67,7 @@ def load() -> ctypes.CDLL:
         lib = load_library("flash_attention", ["flash_attention.cu"])
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -80,16 +84,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     qs, ks = q.shape, k.shape
-    if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
-        raise ValueError(f"expected q (B,S,H,D) and k, v (B,S,K,D); got "
+    if len(qs) != 4 or len(ks) != 4 or ks[:3] != v.shape[:3] or v.ndim != 4:
+        raise ValueError(f"expected q (B,S,H,D), k (B,S,K,D) and v (B,S,K,Dv); got "
                          f"{tuple(qs)}, {tuple(ks)}, {tuple(v.shape)}")
     B, S, H, D = qs
     if ks[0] != B or ks[1] != S or ks[3] != D:
         raise ValueError(f"k/v {tuple(ks)} do not match q {tuple(qs)}")
     if H % ks[2]:
         raise ValueError(f"q heads {H} must be a multiple of kv heads {ks[2]}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the kernel's head_dim is one of {_HEAD_DIMS}, got {D}")
+    if (D, v.shape[3]) not in _HEAD_DIM_PAIRS:
+        raise ValueError(f"the kernel's (q/k, v) head dims are one of {_HEAD_DIM_PAIRS}, "
+                         f"got {(D, v.shape[3])}")
     vec = 16 // q.element_size()  # the kernel copies rows in 16-byte pieces
     ptrs, strides = [], []
     for t in (q, k, v):
@@ -103,31 +108,39 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return ptrs, strides
 
 
+def padded_head_dims(D: int, Dv: int) -> tuple:
+    """The smallest built (q/k, v) head-dim pair that holds (D, Dv); refused
+    past the largest, as the reference's kernel refuses a head_dim above
+    128 (q/k above 192 here, for MLA)."""
+    for pair in _HEAD_DIM_PAIRS:
+        if 1 <= D <= pair[0] and 1 <= Dv <= pair[1]:
+            return pair
+    raise ValueError(f"head_dim {D} with v head_dim {Dv} fits none of the kernel's "
+                     f"{_HEAD_DIM_PAIRS}")
+
+
 def padded_head_dim(D: int) -> int:
-    """The kernel head dim that takes D: D itself when it is 64 or 128, else
-    the next of the two; D above 128 is refused, as the reference's kernel
-    refuses it."""
-    for width in _HEAD_DIMS:
-        if 1 <= D <= width:
-            return width
-    raise ValueError(f"head_dim {D} is not in 1..{_HEAD_DIMS[-1]}")
+    """The kernel head dim that takes D when v's is D too: D itself when it
+    is 64 or 128, else the next of the two; D above 128 is refused."""
+    return padded_head_dims(D, D)[0]
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors q (B,S,H,D), k/v (B,S,K,D), D up
-    to 128: a D other than 64 or 128 goes in zero-padded to the next of the
-    two (`padded_head_dim`) with the true D's softmax scale, and comes out
-    as its first D columns. Raises if the kernel cannot be built or
+    """Launch the kernel on CUDA tensors q (B,S,H,D), k (B,S,K,D), v
+    (B,S,K,Dv): (D, Dv) a built pair, (64, 64), (128, 128) or (192, 128),
+    or dims that fit one go in zero-padded to the smallest such pair
+    (`padded_head_dims`) with the true D's softmax scale, and come out as
+    the first Dv columns. Raises if the kernel cannot be built or
     launched."""
-    D = q.shape[-1]
-    width = padded_head_dim(D)
-    if width == D:
+    D, Dv = q.shape[-1], v.shape[-1]
+    width, width_v = padded_head_dims(D, Dv)
+    if (width, width_v) == (D, Dv):
         return _launch(q, k, v, causal=causal, window=window, scale_dim=D)
-    pad = (0, width - D)
-    out = _launch(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), causal=causal, window=window,
+    pad, pad_v = (0, width - D), (0, width_v - Dv)
+    out = _launch(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad_v), causal=causal, window=window,
                   scale_dim=D)
-    return out[..., :D].contiguous()
+    return out[..., :Dv].contiguous()
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int,
@@ -137,10 +150,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, 
     global launches
     ptrs, strides = _check(q, k, v)
     B, S, H, D = q.shape
+    Dv = v.shape[3]
     fn = load().flash_attention_fwd
-    out = torch.empty_like(q)  # a fifth of torch.empty's host time; its strides go along
+    # empty_like: a fifth of torch.empty's host time; its strides go along
+    out = torch.empty_like(q) if Dv == D else q.new_empty((B, S, H, Dv))
     args = (*ptrs, out.data_ptr(), *strides, *out.stride()[:3],
-            B, H, k.shape[2], S, D, int(window), int(bool(causal)), int(scale_dim),
+            B, H, k.shape[2], S, D, Dv, int(window), int(bool(causal)), int(scale_dim),
             _DTYPES[q.dtype])
     index = q.device.index
     # the raw handle of the current stream (what torch.cuda.current_stream(index)

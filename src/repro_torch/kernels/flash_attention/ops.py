@@ -5,7 +5,8 @@ reference's wrapper runs its kernel in interpret mode on the CPU. CUDA
 tensors go to the Hopper kernel, which reads the (B, S, H, D) layout
 through strides and masks the ragged tail itself, so nothing is
 transposed here; a head dim other than 64 or 128 (any D up to 128, as the
-reference takes) is zero-padded by the kernel's binding. There is no
+reference takes) is zero-padded by the kernel's binding. v may have a head
+dim of its own: the kernel is built for q/k 192 with v 128 (MLA) too. There is no
 fallback: if the kernel cannot be built or launched, this raises. Nor is
 there a backward pass: on either device, a call that autograd would have
 to differentiate raises (`refuse_autograd`), so the CPU and the card agree.
@@ -22,7 +23,7 @@ from .ref import flash_attention_ref
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, S, K, D)
-    v: torch.Tensor,  # (B, S, K, D)
+    v: torch.Tensor,  # (B, S, K, Dv): Dv = D, or (D, Dv) = (192, 128)
     *,
     causal: bool = True,
     window: int = 0,

@@ -114,6 +114,23 @@ def attend_cached(
     return _gqa_combine(probs, v_cache)
 
 
+def attend_latent(q_lat: torch.Tensor, q_pe: torch.Tensor, c_cache: torch.Tensor,
+                  pe_cache: torch.Tensor, valid: torch.Tensor, scale: float) -> torch.Tensor:
+    """MLA's decode step in the absorbed form: the queries' no-rope parts
+    already taken into the latent, q_lat [B,1,H,r], and their rope parts q_pe
+    [B,1,H,dr] against the cache's latents c_cache [B,W,1,r] and rope keys
+    pe_cache [B,W,1,dr] (one of each a slot, shared by every head); `valid`
+    [W] marks live slots. Scores q_lat . c + q_pe . k_pe times `scale`, an
+    fp32 softmax, and the probabilities over the latents: the output in the
+    latent, [B,1,H,r]."""
+    c, pe = c_cache[:, :, 0], pe_cache[:, :, 0]
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, c).float()
+              + torch.einsum("bshd,btd->bhst", q_pe, pe).float()) * scale
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q_lat.dtype)
+    return torch.einsum("bhst,btr->bshr", probs, c)
+
+
 def attend_cross(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bidirectional cross-attention (decoder -> encoder memory): q
     [B,S,H,Hd] over k/v [B,S_enc,K,Hd], no mask. DTensor k/v under a

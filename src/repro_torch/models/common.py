@@ -7,6 +7,8 @@ logits sharded over the vocabulary (a DTensor) too.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
@@ -29,6 +31,31 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     freqs = 1.0 / (theta ** exponent)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float, original: int, beta_fast: float,
+                  beta_slow: float, device=None) -> torch.Tensor:
+    """YaRN's rotary frequencies (DeepSeek-V3's `yarn_find_correction_range`
+    and linear ramp), (dim // 2,) fp32: each pair's plain frequency theta **
+    (-2i / dim), divided by `factor` where it turns fewer than `beta_slow`
+    times over the `original` context, kept where it turns more than
+    `beta_fast` times, and mixed linearly between the two dims those bound."""
+    def dim_at(rotations: float) -> float:
+        return dim * math.log(original / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(dim_at(beta_fast)), 0)
+    high = min(math.ceil(dim_at(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    extra = 1.0 / (theta ** (i / (dim // 2)))
+    ramp = ((i - low) / (high - low)).clamp(0.0, 1.0)
+    return extra / factor * ramp + extra * (1.0 - ramp)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude scale, 0.1 mscale ln(factor) + 1 (1 at factor 1)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,9 @@ Counterpart of `repro.models.model`, parameterized by ModelConfig:
   hybrid           -> parallel attention + SSM heads per layer + FFN; with
                       `layer_types`, a Mamba2 mixer or attention by layer,
                       each followed by the FFN (Granite 4.0-H)
+  MLA (kv_lora_rank > 0) -> multi-head latent attention in every layer
+                      (DeepSeek-V3), a dense FFN in the first
+                      `first_k_dense` layers and the MoE FFN after
   audio (enc-dec)  -> bidirectional encoder over frame embeddings + causal
                       decoder with cross-attention
 
@@ -43,6 +46,18 @@ cache likewise holds "k"/"v" for the attention layers and "ssm_state"/
 scalar multipliers (embedding, residual, softmax scale, logits) launch
 nothing at their defaults.
 
+MLA (`_mla_block`, `_mla_step`): q = rms(x W_qa) W_qb and the latent [c |
+k_pe] = x W_kva, c normed, split per head into [q_nope | q_pe]; RoPE (YaRN
+frequencies where `yarn_factor` > 1) on q_pe and on k_pe, one head shared
+by all. Prefill takes the expanded form, [k_nope | v] = c W_kvb per head and
+k = [k_nope | k_pe], through `prefill_attention` at q/k head dim dn + dr and
+v head dim dv; a decode step the absorbed form over the latent cache
+(`attention.attend_latent`). The cache keeps per layer "v" = c (L, B, S, 1,
+kv_lora_rank) and "k" = the roped k_pe (L, B, S, 1, qk_rope_head_dim): in
+the absorbed view K = [v | k] and V = v. Under `first_k_dense` the dense
+FFN's leaves ("dense_gate", "dense_up", "dense_down") stack over the first
+layers and the MoE FFN's over the others.
+
 Under `repro_torch.sharding.ctx.activation_sharding(mesh)`, with the
 parameters as DTensors (`sharding.rules.param_shardings`), every entry
 point runs sharded: the reference's `constrain` calls stand at their
@@ -64,9 +79,10 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
 from ..obs import spans as _spans
 from ..sharding.ctx import constrain, hold_layout, split_dim
-from .attention import attend_cached, attend_cross, attend_full, cache_update, prefill_attention
+from .attention import (attend_cached, attend_cross, attend_full, attend_latent, cache_update,
+                        prefill_attention)
 from .common import (apply_rope, cross_entropy, dense_init, embed_init, rms_norm,
-                     rope_angles, swiglu)
+                     rope_angles, swiglu, yarn_inv_freq, yarn_mscale)
 from .moe import moe_ffn_dropless, moe_ffn_ep, moe_ffn_sorted, moe_param_shapes
 from .ssm import mamba2_mixer, mamba2_mixer_step, mixer_param_shapes
 
@@ -95,6 +111,18 @@ def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return {"w_gate": (D, cfg.d_ff), "w_up": (D, cfg.d_ff), "w_down": (cfg.d_ff, D)}
 
 
+def _mla_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    D, H, qr, r = cfg.d_model, cfg.num_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wq_a": (D, qr), "q_norm": (qr,), "wq_b": (qr, H * (dn + dr)),
+            "wkv_a": (D, r + dr), "kv_norm": (r,), "wkv_b": (r, H * (dn + dv)),
+            "wo": (H * dv, D)}
+
+
+# the dense FFN of the first `first_k_dense` layers, stacked over them
+_DENSE_LEAVES = {"dense_gate": "w_gate", "dense_up": "w_up", "dense_down": "w_down"}
+
+
 # the leaves of each mixer kind under `layer_types`, stacked over that kind's layers
 _ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
@@ -109,6 +137,14 @@ def _leaf_kind(name: str) -> str:
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     D = cfg.d_model
     s: Dict[str, tuple] = {"ln1": (D,)}
+    if cfg.mla:
+        s.update(_mla_shapes(cfg))
+        s["ln2"] = (D,)
+        s.update(moe_param_shapes(cfg) if cfg.num_experts > 0 else _ffn_shapes(cfg))
+        if cfg.first_k_dense:
+            Fd = cfg.dense_d_ff
+            s.update({"dense_gate": (D, Fd), "dense_up": (D, Fd), "dense_down": (Fd, D)})
+        return s
     if cfg.layer_types:
         s.update(_attn_shapes(cfg))
         s.update(mixer_param_shapes(cfg))
@@ -135,8 +171,16 @@ def _encoder_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def _stack_len(cfg: ModelConfig, name: str) -> int:
+    if cfg.first_k_dense and name in _DENSE_LEAVES:
+        return cfg.first_k_dense
+    if cfg.first_k_dense and name in _moe_leaves(cfg):
+        return cfg.num_layers - cfg.first_k_dense
     kind = _leaf_kind(name) if cfg.layer_types else ""
     return cfg.layers_of(kind) if kind else cfg.num_layers
+
+
+def _moe_leaves(cfg: ModelConfig) -> frozenset:
+    return frozenset(moe_param_shapes(cfg)) if cfg.num_experts > 0 else frozenset()
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -176,9 +220,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
     shapes = param_shapes(cfg)
 
     def mk(name: str, shape: tuple) -> torch.Tensor:
-        if name.startswith("ln") or name in ("final_norm", "ssm_norm", "ssm_D"):
+        if name.startswith("ln") or name in ("final_norm", "ssm_norm", "ssm_D", "q_norm",
+                                              "kv_norm"):
             return torch.ones(shape, dtype=dtype, device=dev)
-        if name in ("bq", "bk", "bv", "ssm_conv_b"):
+        if name in ("bq", "bk", "bv", "ssm_conv_b", "router_bias"):
             return torch.zeros(shape, dtype=dtype, device=dev)
         if name == "ssm_dt_bias":
             return torch.full(shape, -2.0, dtype=dtype, device=dev)  # softplus ~ 0.12
@@ -262,16 +307,48 @@ def _slot_layer(lp: Params, i: int, kind: str, j: int) -> Params:
     return out
 
 
+def _prefix_layer(cfg: ModelConfig, lp: Params, i: int) -> Params:
+    """Layer i's leaves under `first_k_dense`: in the first layers the dense
+    FFN's, as "w_gate"/"w_up"/"w_down", and no MoE leaf; after them the MoE
+    FFN's at i - first_k_dense; every other leaf at i."""
+    n, moe = cfg.first_k_dense, _moe_leaves(cfg)
+    out = {}
+    for name, v in lp.items():
+        if name in _DENSE_LEAVES:
+            if i < n:
+                out[_DENSE_LEAVES[name]] = v[i]
+        elif name in moe:
+            if i >= n:
+                out[name] = v[i - n]
+        else:
+            out[name] = v[i]
+    return out
+
+
 def _scaled(t: torch.Tensor, m: float) -> torch.Tensor:
     """t * m, launching nothing where m is 1."""
     return t if m == 1.0 else t * m
 
 
 def _scale_q(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
-    """q scaled so that the kernels' 1/sqrt(head_dim) makes the softmax
+    """q scaled so that the kernels' 1/sqrt(q's head dim) makes the softmax
     scale `attention_multiplier`; q itself when that is 0 (the default)."""
     m = cfg.attention_multiplier
-    return q if m == 0.0 else q * (m * cfg.resolved_head_dim ** 0.5)
+    return q if m == 0.0 else q * (m * q.shape[-1] ** 0.5)
+
+
+def _rope_angles(cfg: ModelConfig, positions: torch.Tensor, dim: int):
+    """cos, sin [..., dim // 2] of the rotary embedding: plain, or under
+    YaRN (`yarn_factor` > 1) its frequencies and magnitude scale."""
+    if cfg.yarn_factor == 1.0:
+        return rope_angles(positions, dim, cfg.rope_theta)
+    inv = yarn_inv_freq(dim, cfg.rope_theta, cfg.yarn_factor, cfg.yarn_original_max_pos,
+                        cfg.yarn_beta_fast, cfg.yarn_beta_slow, device=positions.device)
+    ang = positions.float()[..., None] * inv
+    m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale) / yarn_mscale(cfg.yarn_factor,
+                                                                     cfg.yarn_mscale_all_dim)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return (cos, sin) if m == 1.0 else (cos * m, sin * m)
 
 
 def _project_qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch.Tensor):
@@ -287,8 +364,60 @@ def _project_qkv(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch
     v = constrain(split_dim(v, -1, K, Hd), "bshd")
     if cfg.nope:
         return q, k, v
-    cos, sin = rope_angles(positions, Hd, cfg.rope_theta)
+    cos, sin = _rope_angles(cfg, positions, Hd)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _mla_project(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch.Tensor):
+    """MLA's projections of h (B, S, D): q_nope (B, S, H, dn), the roped
+    q_pe (B, S, H, dr), the normed latent c (B, S, r) and the roped k_pe
+    (B, S, 1, dr)."""
+    B, S, _ = h.shape
+    H, dn, dr, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q = (rms_norm(h @ lp["wq_a"], lp["q_norm"], cfg.norm_eps) @ lp["wq_b"]).view(B, S, H, dn + dr)
+    kv_a = h @ lp["wkv_a"]
+    c = rms_norm(kv_a[..., :r], lp["kv_norm"], cfg.norm_eps)
+    cos, sin = _rope_angles(cfg, positions, dr)
+    return (q[..., :dn], apply_rope(q[..., dn:], cos, sin), c,
+            apply_rope(kv_a[..., None, r:], cos, sin))
+
+
+def _mla_block(cfg: ModelConfig, lp: Params, h: torch.Tensor, positions: torch.Tensor):
+    """MLA over the whole sequence in the expanded form, in a `model.mla`
+    span: (output (B, S, D), the layer's cache "k" = k_pe (B, S, 1, dr) and
+    "v" = c (B, S, 1, r)). The attention is the model's `prefill_attention`
+    at q/k head dim dn + dr and v head dim dv."""
+    with _spans.span("model.mla"):
+        B, S, _ = h.shape
+        H, dn, dr, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        q_nope, q_pe, c, k_pe = _mla_project(cfg, lp, h, positions)
+        kv = (c @ lp["wkv_b"]).view(B, S, H, dn + dv)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([kv[..., :dn], k_pe.expand(B, S, H, dr)], dim=-1)
+        a = prefill_attention(_scale_q(cfg, q), k, kv[..., dn:], window=cfg.sliding_window,
+                              use_pallas=cfg.use_pallas)
+        return _merge_heads(a) @ lp["wo"], {"k": k_pe, "v": c[:, :, None]}
+
+
+def _mla_step(cfg: ModelConfig, lp: Params, h: torch.Tensor, cache: Dict[str, torch.Tensor],
+              i: int, pos: torch.Tensor) -> torch.Tensor:
+    """MLA's decode step in the absorbed form, in a `model.mla` span: the
+    step's c and k_pe written into layer i's cache at `pos`, q_nope taken
+    into the latent by W_kvb's key part, attention over the latent cache
+    (`attend_latent`), the latent output out through W_kvb's value part
+    and W_o."""
+    with _spans.span("model.mla"):
+        B = h.shape[0]
+        H, dn, dv, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+        q_nope, q_pe, c, k_pe = _mla_project(cfg, lp, h, pos.reshape(1))
+        pe_cache, c_cache, valid = cache_update(cache["k"][i], cache["v"][i], k_pe, c[:, :, None],
+                                                pos, window=cfg.sliding_window)
+        w = lp["wkv_b"].view(r, H, dn + dv)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w[..., :dn])
+        scale = cfg.attention_multiplier or (dn + cfg.qk_rope_head_dim) ** -0.5
+        o = attend_latent(q_lat, q_pe, c_cache, pe_cache, valid, scale)
+        o = torch.einsum("bshr,rhd->bshd", o, w[..., dn:])
+        return o.reshape(B, 1, H * dv) @ lp["wo"]
 
 
 def _ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -342,7 +471,7 @@ def _ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, moe=moe_ffn_ep
     # sum into the FFN and replicate its products over `model`)
     x = constrain(x, "bsd")
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    if cfg.num_experts == 0:
+    if cfg.num_experts == 0 or "router" not in lp:  # a dense model, or a dense-prefix layer
         return x + _scaled(swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"]),
                            cfg.residual_multiplier), {}
     if cfg.dropless:
@@ -354,14 +483,24 @@ def _ffn_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, moe=moe_ffn_ep
         if cfg.shared_d_ff:
             y = y + swiglu(h2, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
         if sp is not None:
-            sp.counters["routed_pairs"] = tokens.shape[0] * cfg.experts_per_token
+            pairs = tokens.shape[0] * cfg.experts_per_token
+            sp.counters["routed_pairs"] = pairs
+            # a share's count is read on the host only here, with a recorder
+            # attached, and not while a CUDA graph captures the step
+            held = aux.get("held_pairs", pairs)
+            if not (isinstance(held, torch.Tensor) and held.is_cuda
+                    and torch.cuda.is_current_stream_capturing()):
+                sp.counters["held_pairs"] = int(held)
     return x + _scaled(y, cfg.residual_multiplier), aux
 
 
 def _mixer_kind(cfg: ModelConfig, kind: str) -> str:
     """A layer's mixer: `kind` under `layer_types`, else as `arch_type`
-    says ("attention" for a hybrid, whose SSM heads run beside it)."""
-    return kind or ("mamba" if cfg.arch_type == "ssm" else "attention")
+    says ("attention" for a hybrid, whose SSM heads run beside it), "mla"
+    for latent attention."""
+    if kind:
+        return kind
+    return "mamba" if cfg.arch_type == "ssm" else "mla" if cfg.mla else "attention"
 
 
 def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -373,10 +512,15 @@ def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: tor
     layer's mixer under `layer_types`."""
     cache: Dict[str, torch.Tensor] = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    if _mixer_kind(cfg, kind) == "mamba":
+    mixer = _mixer_kind(cfg, kind)
+    if mixer == "mamba":
         mixed, st, conv_tail = mamba2_mixer(cfg, lp, h)
         if collect_cache:
             cache = {"ssm_state": st.float(), "conv_buf": conv_tail}
+    elif mixer == "mla":
+        mixed, latent = _mla_block(cfg, lp, h, positions)
+        if collect_cache:
+            cache = latent
     else:
         q, k, v = _project_qkv(cfg, lp, h, positions)
         a = prefill_attention(_scale_q(cfg, q), k, v, window=cfg.sliding_window,
@@ -410,6 +554,8 @@ def _layers(cfg: ModelConfig, lp: Params):
     """(layer params, kind, slot) of each layer in order: under
     `layer_types` its mixer's kind and its place in that kind's stack (and
     cache), else "" and the layer's index."""
+    if cfg.first_k_dense:
+        return ((_prefix_layer(cfg, lp, i), "", i) for i in range(cfg.num_layers))
     if not cfg.layer_types:
         return ((_layer(lp, i), "", i) for i in range(cfg.num_layers))
     return ((_slot_layer(lp, i, kind, j), kind, j)
@@ -578,6 +724,9 @@ def _cache_struct(cfg: ModelConfig, batch: int, max_len: int, enc_len: int, dtyp
     if cfg.layer_types:
         La, Lm = cfg.layers_of("attention"), cfg.layers_of("mamba")
     s: Dict[str, Tuple[tuple, torch.dtype]] = {}
+    if cfg.mla:
+        return {"k": ((L, batch, W, 1, cfg.qk_rope_head_dim), dtype),
+                "v": ((L, batch, W, 1, cfg.kv_lora_rank), dtype)}
     if cfg.arch_type != "ssm" and La:
         s["k"] = s["v"] = ((La, batch, W, K, Hd), dtype)
     if (cfg.arch_type == "ssm" or cfg.hybrid or cfg.layer_types) and Lm:
@@ -644,8 +793,11 @@ def _decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor
     positions = pos.reshape(1)
     for p, kind, i in _layers(cfg, params["layers"]):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        if _mixer_kind(cfg, kind) == "mamba":
+        mixer = _mixer_kind(cfg, kind)
+        if mixer == "mamba":
             mixed = _mixer_step(cfg, p, h, cache, i)
+        elif mixer == "mla":
+            mixed = _mla_step(cfg, p, h, cache, i, pos)
         else:
             q, k, v = _project_qkv(cfg, p, h, positions)
             k_cache, v_cache, valid = cache_update(

@@ -22,7 +22,16 @@ through its SwiGLU, by one grouped product a projection
 (`torch._grouped_mm` in bf16, which never reads an expert that receives
 no pair; in other types one batched product over zero-padded per-expert
 buckets), with nothing read on the host. The combine weighs each token's
-k rows and sums them in pick order, without atomics.
+k rows and sums them in pick order, without atomics. Where the layer holds
+an expert share (`cfg.expert_share`: experts [first_expert, first_expert +
+num_experts) of the router's `n_router`, as one rank of expert parallelism
+holds them), the router still ranks every expert, the pairs of other
+experts sort last and go through no product, and they add nothing: the
+layer's output is its share's part of the whole.
+
+`route_tokens` picks the router: `route`'s softmax, or DeepSeek-V3's
+`route_grouped` (sigmoid scores, a bias that steers the choice only,
+group-limited), then `routed_scaling_factor`.
 
 `moe_ffn_ep` is expert parallelism under a mesh (`repro_torch.sharding.
 ctx`), the reference's `shard_map` body on each rank's local tensors
@@ -75,6 +84,50 @@ def route(x: torch.Tensor, router_w: torch.Tensor, k: int
     lb_loss = E * torch.sum(load * importance)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return weights, idx, {"lb_loss": lb_loss, "z_loss": z_loss}
+
+
+def route_grouped(x: torch.Tensor, router_w: torch.Tensor, bias: torch.Tensor, k: int,
+                  n_group: int, topk_group: int, norm: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """DeepSeek-V3's router (`noaux_tc`), in float32: s = sigmoid(x W_r),
+    the choice on c = s + bias. A group's score is the sum of its two best
+    c; the best `topk_group` groups are kept and the other experts' c set to
+    0.0, the fill `transformers`' DeepseekV3TopkRouter uses (DeepSeek's own
+    code uses -inf; the two pick alike while a kept group holds k experts
+    with c > 0). The picks are the top k of that, in descending order,
+    the lower expert first on a tie, as `route` gives them; the gates are s
+    at the picks, over their sum + 1e-20 when `norm`. Returns (gates (T, k),
+    idx (T, k), aux): aux's "lb_loss" is `route`'s Switch form on the
+    normalized scores, its "z_loss" 0 (the router has no softmax)."""
+    s = torch.sigmoid(x.float() @ router_w.float())
+    c = s + bias.float()
+    T, E = c.shape
+    top2 = c.view(T, n_group, E // n_group).topk(2, dim=-1).values.sum(-1)
+    kept = torch.sort(top2, dim=-1, descending=True, stable=True).indices[:, :topk_group]
+    in_kept = torch.zeros_like(top2, dtype=torch.bool).scatter_(1, kept, True)
+    choice = c.masked_fill(~in_kept.repeat_interleave(E // n_group, dim=1), 0.0)
+    idx = torch.sort(choice, dim=-1, descending=True, stable=True).indices[:, :k]
+    gates = s.gather(1, idx)
+    if norm:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    load = F.one_hot(idx, E).float().sum(1).mean(0)
+    importance = (s / s.sum(-1, keepdim=True)).mean(0)
+    return gates, idx, {"lb_loss": E * torch.sum(load * importance),
+                        "z_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+
+def route_tokens(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The configuration's router over x (T, D): (gates, idx over all
+    `n_router` experts, aux); the gates times `routed_scaling_factor`."""
+    if cfg.router_scoring == "sigmoid":
+        gates, idx, aux = route_grouped(x, p["router"], p["router_bias"], cfg.experts_per_token,
+                                        cfg.n_group, cfg.topk_group, cfg.norm_topk_prob)
+    else:
+        gates, idx, aux = route(x, p["router"], cfg.experts_per_token)
+    if cfg.routed_scaling_factor != 1.0:
+        gates = gates * cfg.routed_scaling_factor
+    return gates, idx, aux
 
 
 def _expert_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -264,7 +317,9 @@ def segments_grouped(xs: torch.Tensor, counts: torch.Tensor, w_gate: torch.Tenso
     so in them the rows are put in zero-padded buckets (E, most, D), each
     expert's rows in its own, and go through one batched product a
     projection over the experts: memory O(E * most * (D + F)), the weights
-    read once."""
+    read once. Rows past the last segment (an expert share's pairs of other
+    experts) go through no product: in bf16 their output rows hold whatever
+    the grouped product left there, in other types zeros."""
     offs = torch.cumsum(counts, 0, dtype=torch.int32)
     if xs.dtype == torch.bfloat16:
         def mm(a, w):
@@ -273,27 +328,39 @@ def segments_grouped(xs: torch.Tensor, counts: torch.Tensor, w_gate: torch.Tenso
     E, (P, D) = counts.shape[0], xs.shape
     rows = torch.arange(P, dtype=torch.int32, device=xs.device)
     expert = torch.searchsorted(offs, rows, right=True)
-    at = expert * most + rows - (offs - counts)[expert]
-    buckets = xs.new_zeros(E * most, D).index_copy_(0, at, xs).view(E, most, D)
+    held = expert < E
+    expert = expert.clamp(max=E - 1)
+    # a row past the last segment goes to the one spare row, E * most
+    at = torch.where(held, expert * most + rows - (offs - counts)[expert], E * most)
+    buckets = xs.new_zeros(E * most + 1, D).index_copy_(0, at, xs)[:E * most].view(E, most, D)
     h = F.silu(torch.bmm(buckets, w_gate)) * torch.bmm(buckets, w_up)
-    return torch.bmm(h, w_down).view(E * most, D)[at]
+    return torch.cat([torch.bmm(h, w_down).view(E * most, D), xs.new_zeros(1, D)])[at]
 
 
 def moe_ffn_dropless(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (T, D) -> (out (T, D) in x's type, aux): every (token, expert)
-    pair computed, only the experts that receive pairs read. aux has
-    "lb_loss", "z_loss" and "dropped" (0)."""
+    pair on a held expert computed, only the experts that receive pairs
+    read. aux has "lb_loss", "z_loss", "dropped" (0) and, for an expert
+    share, "held_pairs", the pairs on held experts (a device tensor)."""
     T, D = x.shape
-    k = cfg.experts_per_token
-    weights, idx, aux = route(x, p["router"], k)
+    E, k = cfg.num_experts, cfg.experts_per_token
+    weights, idx, aux = route_tokens(cfg, p, x)
     flat = idx.reshape(-1)
+    if cfg.expert_share:
+        flat = flat - cfg.first_expert
+        flat = torch.where((flat >= 0) & (flat < E), flat, E)  # E: held elsewhere, sorts last
     order = torch.argsort(flat, stable=True)
     # a scatter, not `bincount`, which reads its input's max on the host
-    counts = flat.new_zeros(cfg.num_experts).scatter_add_(0, flat, torch.ones_like(flat))
+    bins = E + 1 if cfg.expert_share else E
+    counts = flat.new_zeros(bins).scatter_add_(0, flat, torch.ones_like(flat))
     xs = x[order // k]
     # a token picks an expert once, so no segment is longer than T
-    ys = segments_grouped(xs, counts, p["w_gate"], p["w_up"], p["w_down"], T)
+    ys = segments_grouped(xs, counts[:E], p["w_gate"], p["w_up"], p["w_down"], T)
+    if cfg.expert_share:
+        # the rows past the held pairs went through no product
+        ys = torch.where((flat[order] < E)[:, None], ys, 0.0)
+        aux["held_pairs"] = T * k - counts[E]
     y = torch.empty_like(ys)
     y[order] = ys  # back to (token, pick) order
     out = (y.view(T, k, D) * weights.to(x.dtype)[..., None]).sum(1)
@@ -316,13 +383,18 @@ def moe_ffn_dense(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
 
 
 def moe_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The MoE FFN's leaves: the router over all `n_router` experts (and
+    the sigmoid router's bias), the held experts' weights, the shared
+    expert's."""
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     s = {
-        "router": (D, E),
+        "router": (D, cfg.n_router),
         "w_gate": (E, D, F_),
         "w_up": (E, D, F_),
         "w_down": (E, F_, D),
     }
+    if cfg.router_scoring == "sigmoid":
+        s["router_bias"] = (cfg.n_router,)
     if cfg.shared_d_ff:
         Fs = cfg.shared_d_ff
         s.update({"shared_gate": (D, Fs), "shared_up": (D, Fs), "shared_down": (Fs, D)})

@@ -5,7 +5,8 @@ On the CPU: `cache_update` with a 0-d tensor position writes the same slot
 and bytes and returns the same valid mask as an int position's host slicing
 did (a slot in range, one clamped past the end, a ring wrapped); `decode_step` with a tensor
 position gives the int position's logits and cache bit for bit on the
-qwen2, mamba2 and granite smoke configurations and on the other families a
+qwen2, mamba2, granite and deepseek-v3 smoke configurations (deepseek's
+latent cache and absorbed step) and on the other families a
 card serves (hymba's ring wrapping, the capacity-bound MoE, the
 encoder-decoder); and `greedy_decode` runs every step eagerly, which its
 `serving.decode` span counts.
@@ -28,10 +29,10 @@ from repro_torch.models.attention import cache_update
 from repro_torch.obs import spans
 from repro_torch.serving import greedy_decode
 
-# the benchmark's three configurations, then every other family a card serves in
+# the benchmark's four configurations, then every other family a card serves in
 # `chip_smoke.py`: hymba with a window of 8, so that a 12-token prompt's ring
 # wraps while it decodes, the capacity-bound MoE and the encoder-decoder
-ARCHS = ["qwen2-0.5b", "mamba2-370m", "granite-4.0-h-small"]
+ARCHS = ["qwen2-0.5b", "mamba2-370m", "granite-4.0-h-small", "deepseek-v3"]
 FAMILIES = ARCHS + ["hymba-1.5b", "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
 WINDOW = {"hymba-1.5b": 8}
 PROMPT = 12

@@ -226,12 +226,16 @@ def test_ranges_open_only_under_a_profiler(recorder, smoke):
     assert all(s._range is None for s in recorder.take(root.request))
 
 
-@pytest.mark.parametrize("arch", ["granite-4.0-h-small", "qwen2-0.5b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["granite-4.0-h-small", "qwen2-0.5b", "mamba2-370m",
+                                  "deepseek-v3"])
 def test_prefill_counts_the_cache_and_the_moe(recorder, arch):
     """`model.prefill` counts the bytes of the cache's fixed state and of its
-    K/V, from shapes; under an MoE each layer's FFN is a `model.moe` span
-    with its routed pairs, from shapes, and nothing that would need the
-    experts' counts on the host."""
+    K/V (deepseek's latent and rope key), from shapes; under an MoE each MoE
+    layer's FFN is a `model.moe` span with its routed pairs, from shapes,
+    and its held pairs, all of them where the layer holds every expert (a
+    share's count, read on the host with a recorder attached, is
+    tests/test_torch_deepseek_v3.py's); nothing else that would need the
+    experts' counts on the host. MLA layers open a `model.mla` span each."""
     cfg = get_smoke_config(arch).with_(remat="none")
     params = init_params(cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu")
     prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1))
@@ -246,9 +250,12 @@ def test_prefill_counts_the_cache_and_the_moe(recorder, arch):
         "cache_state_bytes": nbytes.get("ssm_state", 0) + nbytes.get("conv_buf", 0),
         "cache_kv_bytes": nbytes.get("k", 0) + nbytes.get("v", 0)}
     moes = [s for s in got if s.name == "model.moe"]
-    assert len(moes) == (cfg.num_layers if cfg.num_experts else 0)
+    assert len(moes) == (cfg.num_layers - cfg.first_k_dense if cfg.num_experts else 0)
+    pairs = prompt.numel() * cfg.experts_per_token
     for s in moes:
         assert s.parent == prefill.id
-        assert s.counters == {"routed_pairs": prompt.numel() * cfg.experts_per_token}
+        assert s.counters == {"routed_pairs": pairs, "held_pairs": pairs}
+    mlas = [s.parent for s in got if s.name == "model.mla"]
+    assert mlas == ([prefill.id] * cfg.num_layers if cfg.mla else [])
     if arch == "granite-4.0-h-small":
         assert prefill.counters["cache_state_bytes"] > 0 and prefill.counters["cache_kv_bytes"] > 0
