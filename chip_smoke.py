@@ -11,12 +11,15 @@ Phases, one JSON line each on stdout:
            source, all started together), and the HGMMA (wgmma)
            instructions of each kernel in the built libraries' SASS.
   kernels  every kernel of the paths (flash attention, SSD scan, KV-page
-           pack and unpack) against its plain torch version on the card, at
-           the serving shapes (flash also at qwen3-moe's 64/4 heads of 128
-           and seamless-m4t's decoder, 16/16 heads of 64) and the
-           reference's edge shapes, with times and bounds at the serving
-           shapes. The KV-page kernels are held bit for bit, and their
-           index checks must raise.
+           pack and unpack, the Mamba2 decode step) against its plain torch
+           version on the card, at the serving shapes (flash also at
+           qwen3-moe's 64/4 heads of 128 and seamless-m4t's decoder, 16/16
+           heads of 64; the decode step at mamba2-370m's, granite's and
+           hymba's decode widths) and the reference's edge shapes, with
+           times and bounds at the serving shapes, and the launches of one
+           eager mamba2-370m decode step (B=8) without and with the
+           decode-step kernels. The KV-page kernels are held bit for bit,
+           and their index checks must raise.
   kv_path  the KV-page kernels' own entry points (`kv_pack`, `kv_unpack`),
            which no other path of the system runs: qwen2-0.5b's per-layer
            K|V pages gathered from one pool on the card into a transfer
@@ -206,12 +209,15 @@ from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ref, kv_unpack, kv_unpa
 from repro_torch.kernels.kv_pack import kernel as kv_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssm_step import kernel as step_kernel  # noqa: E402
+from repro_torch.kernels.ssm_step import mamba2_step, mamba2_step_ref  # noqa: E402
 from repro_torch.kernels.spray_sim import kernel as sim_kernel  # noqa: E402
 from repro_torch.kernels.spray_sim import spray_sim, spray_sim_ref  # noqa: E402
 from repro_torch.kernels.tent_core import kernel as tc_kernel  # noqa: E402
 from repro_torch.kernels.tent_core import ops as tc_ops  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.models import decode_step, init_params, loss_fn, prefill_forward  # noqa: E402
+from repro_torch.models import decode_step, init_cache, init_params, loss_fn  # noqa: E402
+from repro_torch.models import prefill_forward  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
 from repro_torch.obs import FlightRecorder  # noqa: E402
@@ -289,6 +295,16 @@ KV_CHECK_SHAPES = [(32, 16, 128, 8), (64, 8, 256, 64), (40, 16, 3, 7), (40, 5, 3
 # hymba-1.5b's (16 x 5 x 64 x 2)
 KV_QWEN2 = (131072, 16, 256, 8192)
 KV_HYMBA = (32768, 16, 640, 4096)
+# the Mamba2 decode step: (B, H, P, N) of mamba2-370m's decode cell, granite's
+# at B=1, hymba-1.5b's; steps a check runs, each on the last one's buffer and state
+SSM_STEP_SHAPES = {"mamba2": (8, 32, 64, 128), "granite": (1, 128, 64, 128),
+                   "hymba": (2, 50, 64, 16)}
+SSM_STEP_CHECK_STEPS = 4
+# the state a timing's stack of layers holds together: 4x the H100's 50 MB L2
+SSM_STEP_COLD_BYTES = 200 * 2**20
+# the eager decode step whose launches are counted: mamba2-370m, B=8, as the
+# decode cell serves it
+SSM_STEP_DECODE = ("mamba2-370m", 8)
 
 # (arch, batch, prompt, new tokens, parameter type, depth: None for the
 # published one); replay checks on 256-token prompts. qwen3-moe's 94 layers
@@ -338,15 +354,16 @@ HICACHE_TIERS, HICACHE_PAGE_TOKENS, HICACHE_CONVO = (64, 128, 256), 64, 4096
 
 # lint: the libraries whose flags tentlint reads and this run loads, and
 # the scenario run under the runtime sanitizer
-LINT_LIBRARIES = ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim")
+LINT_LIBRARIES = ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim",
+                  "ssm_step")
 SANITIZED_SCENARIO = "single_rail_flap"
 # kernel name -> (module, launch-count attribute)
 COUNTERS = {"flash_attention": (fa_kernel, "launches"), "ssd_scan": (ssd_kernel, "launches"),
             "kv_pack": (kv_kernel, "pack_launches"), "kv_unpack": (kv_kernel, "unpack_launches"),
             "tent_choose_wave_padded": (tc_kernel, "choose_launches"),
             "tent_on_complete_many": (tc_kernel, "drain_launches"),
-            "spray_sim": (sim_kernel, "launches")}
-LIBRARIES = (fa_kernel, ssd_kernel, kv_kernel, tc_kernel, sim_kernel)
+            "spray_sim": (sim_kernel, "launches"), "ssm_step": (step_kernel, "launches")}
+LIBRARIES = (fa_kernel, ssd_kernel, kv_kernel, tc_kernel, sim_kernel, step_kernel)
 NO_LAUNCHES = {name: 0 for name in COUNTERS}
 # the jitted core and the sweep: where their checks run (the card)
 DEV = "cuda"
@@ -382,6 +399,7 @@ MC_WORKERS = 7
 # ssd_chunk_scan, and in f32 ssd_chunk_cb
 SSD_PREFIX = "ssd_"
 FLASH_NAME = "flash_fwd"  # flash_fwd_f32, flash_fwd_bf16
+SSM_STEP_NAMES = ("conv_step", "state_step")  # the Mamba2 decode step's two kernels
 # the wave chooser's kernels: tent_choose_wave_warp (pc <= 32) and
 # tent_choose_wave_padded (the block kernel)
 CHOOSE_NAME = "tent_choose_wave"
@@ -801,10 +819,159 @@ def _kv_timing(shape, dtype, case):
                      "bound_ms": bound, "bound_by": bound_by, "max_abs_err": case["max_abs_err"]}
     return res
 
+def ssm_step_bound(B, H, P, N, dtype):
+    """Least time of one layer's decode step: the fp32 state read and
+    written once (2 B H P N 4 bytes, the bulk), the conv buffer's K-1 rows
+    read and written, the new x|B|C column and dt read, the conv and decay
+    weights read, y written; no bound by operations (4 FLOP per 8 bytes of
+    state). Returns (ms, bound_by, the state's share of the bytes)."""
+    C, el = H * P + 2 * N, torch.tensor([], dtype=dtype).element_size()
+    state = 2 * B * H * P * N * 4
+    rest = el * (B * C + 2 * B * 3 * C + 5 * C + B * H + 3 * H + B * H * P)
+    return (state + rest) / HBM_BPS * 1e3, "bytes", state / (state + rest)
+
+
+def _ssm_step_operands(shape, dtype, seed):
+    """x|B|C and dt as rows of a wider in-projection output (as the model
+    slices them), a conv buffer, an fp32 state, and drawn conv and decay
+    weights, in `mamba2_step`'s order."""
+    B, H, P, N = shape
+    C = H * P + 2 * N
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*size, scale=1.0):
+        return (torch.randn(size, generator=g, device="cuda") * scale).to(dtype)
+
+    proj = draw(B, 1, 2 * H * P + 2 * N + H)[:, 0]
+    return [proj[:, H * P:H * P + C], proj[:, H * P + C:], draw(B, 3, C),
+            torch.randn((B, H, P, N), generator=g, device="cuda") * 0.5, draw(4, C, scale=0.5),
+            draw(C, scale=0.1), draw(H, scale=0.5),
+            torch.log(1 + 15 * torch.rand(H, generator=g, device="cuda")).to(dtype), draw(H)]
+
+
+def _ssm_step_skip(xBC, conv_buf, conv_w, conv_b, D, H, P):
+    """The step's D x term in f32, from the operands before the step."""
+    window = torch.cat([conv_buf.to(xBC.dtype), xBC[:, None, :]], dim=1)
+    xs = F.silu(torch.einsum("bkc,kc->bc", window, conv_w) + conv_b)[:, :H * P]
+    return D.float()[None, :, None] * xs.float().reshape(-1, H, P)
+
+
+def _check_ssm_step(shape, dtype, seed):
+    """SSM_STEP_CHECK_STEPS steps of the kernels against the plain version,
+    each side on its own buffer and state: the buffer bit for bit and
+    updated in place, the state and y element by element within TOL of the
+    plain one's. In bfloat16 the plain version rounds y's two terms, C .
+    state and D x, before their sum, so where they cancel its own error is
+    relative to the terms and not to y: there the bar's relative part is
+    taken on |y| + 2 |D x|, which bounds |C . state| + |D x|."""
+    kern = _ssm_step_operands(shape, dtype, seed)
+    plain = [t.clone() for t in kern]
+    buf, state = kern[2], kern[3]
+    err_y = err_s = 0.0
+    ok = True
+    tol = TOL[dtype]
+    for _ in range(SSM_STEP_CHECK_STEPS):
+        y, out_buf, out_state = mamba2_step(*kern)
+        skip = _ssm_step_skip(plain[0], plain[2], plain[4], plain[5], plain[8], *shape[1:3])
+        want_y, plain[2], plain[3] = mamba2_step_ref(*plain)
+        torch.cuda.synchronize()
+        dy = (y.float() - want_y.float()).abs()
+        scale = want_y.float().abs() + (2 * skip.abs() if dtype == torch.bfloat16 else 0)
+        ds = (state - plain[3]).abs()
+        ok &= out_buf is buf and out_state is state and torch.equal(buf, plain[2])
+        ok &= bool((dy <= tol + tol * scale).all())
+        ok &= bool((ds <= tol + tol * plain[3].abs()).all())
+        err_y, err_s = max(err_y, dy.max().item()), max(err_s, ds.max().item())
+    case = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+            "steps": SSM_STEP_CHECK_STEPS, "max_abs_err": max(err_y, err_s),
+            "y_max_abs_err": err_y, "state_max_abs_err": err_s, "in_place": True}
+    if not ok:
+        raise AssertionError(f"the Mamba2 decode-step kernels disagree with their plain "
+                             f"version: {case}")
+    return case
+
+
+def _ssm_step_timing(shape, dtype, case):
+    """The wrapper (CUDA events), its two kernels' device time (profiler)
+    and the plain version, a layer, against the bytes bound. A call steps
+    every layer of a stack whose states together exceed the L2 cache
+    SSM_STEP_COLD_BYTES times over, each layer's buffer and state updated
+    in place, so each layer finds its state in HBM, as in a decode step."""
+    args = _ssm_step_operands(shape, dtype, seed=12)
+    B, H, P, N = shape
+    layers = max(1, -(-SSM_STEP_COLD_BYTES // (B * H * P * N * 4)))
+    bufs = args[2].expand(layers, *args[2].shape).clone()
+    states = args[3].expand(layers, *args[3].shape).clone()
+
+    def stack(step):
+        def run():
+            for i in range(layers):
+                step(args[0], args[1], bufs[i], states[i], *args[4:])
+        return run
+
+    by_kernel = device_ms_by_kernel(stack(mamba2_step), iters=2)
+    named = {name: [(ms, n) for k, (ms, n) in by_kernel.items() if f"{name}<" in k]
+             for name in SSM_STEP_NAMES}
+    bound, bound_by, state_share = ssm_step_bound(*shape, dtype)
+    device = ({name: sum(ms for ms, _ in rows) / layers for name, rows in named.items()}
+              if all(named.values()) else None)
+    device_ms = sum(device.values()) if device else None
+    res = {
+        "shape": list(shape), "layers": layers,
+        "kernel_ms": cuda_ms(stack(mamba2_step), iters=3) / layers,
+        "kernel_device_ms": device_ms, "kernel_device_ms_by_kernel": device,
+        "kernel_device_records": {name: sum(n for _, n in rows) for name, rows in named.items()},
+        "plain_ms": cuda_ms(stack(mamba2_step_ref), iters=3) / layers,
+        "library_ms": None,  # no single PyTorch call computes the step
+        "bound_ms": bound, "bound_by": bound_by, "bound_state_share": state_share,
+        "roofline_pct": 100 * bound / device_ms if device_ms else None,
+        "max_abs_err": case["max_abs_err"],
+    }
+    del bufs, states
+    return res
+
+
+def launches_of(fn) -> int:
+    """Kernel launches, memcpys and memsets of one call of `fn`, from the
+    profiler's host records of the runtime and driver calls (CUPTI may drop
+    device records, not these)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum("LaunchKernel" in e.name or e.name.startswith(("cudaMemcpy", "cudaMemset"))
+               for e in prof.events())
+
+
+def _eager_step_launches() -> dict:
+    """One eager decode step of SSM_STEP_DECODE (bf16 weights from SEED, a
+    zero cache), with the plain mixer step and with the decode-step kernels:
+    the launches and the host time of each."""
+    arch, batch = SSM_STEP_DECODE
+    cfg = get_config(arch).with_(remat="none")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    cache = init_cache(cfg, batch, 1, dtype=torch.bfloat16, device="cuda")
+    token = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+    pos = torch.zeros((), dtype=torch.int64, device="cuda")
+    res = {"arch": arch, "batch": batch}
+    with torch.no_grad():
+        for key, pallas in (("plain", False), ("kernels", True)):
+            c = cfg.with_(use_pallas=pallas)
+            step = lambda: decode_step(c, params, cache, token, pos)  # noqa: E731
+            res[f"{key}_launches"] = launches_of(step)
+            res[f"{key}_wall_ms"] = wall_ms(step)[1]
+    del params, cache
+    return res
+
 
 def phase_kernels() -> dict:
     reset_launches()  # this phase's launches: checks and timing only
-    fa_cases, ssd_cases, timing = [], [], {"flash_attention": {}, "ssd_scan": {}}
+    fa_cases, ssd_cases, timing = [], [], {"flash_attention": {}, "ssd_scan": {}, "ssm_step": {}}
+    step_cases = []
     kv_cases, timing["kv_pack"], timing["kv_unpack"], refusals = [], {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).removeprefix("torch.")
@@ -832,6 +999,10 @@ def phase_kernels() -> dict:
             del inputs
         for shape in SSD_TAIL_SHAPES + SSD_SHORT_SHAPES:
             ssd_cases.append(_check_ssd(shape, dtype, seed=5)[0])
+        for key, shape in SSM_STEP_SHAPES.items():
+            case = _check_ssm_step(shape, dtype, seed=13)
+            step_cases.append(case)
+            timing["ssm_step"][f"{dt}_{key}"] = _ssm_step_timing(shape, dtype, case)
         ssd_cases.append(_check_ssd(SSD_STATE_SHAPE, dtype, seed=6, with_state=True)[0])
         ssd_cases.append(_check_ssd(SSD_MISALIGNED_SHAPE, dtype, seed=7,
                                     bc_pad=SSD_MISALIGNED_PAD)[0])
@@ -857,13 +1028,17 @@ def phase_kernels() -> dict:
     checks = read_launches()
     checked = []
     for name, cases in (("flash_attention", fa_cases), ("ssd_scan", ssd_cases),
-                        ("kv_pack", kv_cases), ("kv_unpack", kv_cases)):
+                        ("kv_pack", kv_cases), ("kv_unpack", kv_cases),
+                        ("ssm_step", step_cases)):
         checked.append({"name": name, "check_launches": checks[name], "cases": len(cases),
                         "max_abs_err": {dt: max(c["max_abs_err"] for c in cases
                                                 if c["dtype"] == dt)
                                         for dt in ("float32", "bfloat16")}})
+    eager_step = _eager_step_launches()
     res = {"phase": "kernels", "checked": checked, "timing": timing, "kv_refusals": refusals,
-           "cases": {"flash_attention": fa_cases, "ssd_scan": ssd_cases, "kv_pages": kv_cases}}
+           "eager_decode_step": eager_step,
+           "cases": {"flash_attention": fa_cases, "ssd_scan": ssd_cases, "kv_pages": kv_cases,
+                     "ssm_step": step_cases}}
     emit(res)
     return res
 
@@ -930,13 +1105,23 @@ def _close(name, got, want, tol=2e-3):
     return err.max().item()
 
 
-def expected_launches(cfg) -> dict:
-    """Kernel launches of one prefill: one per attention layer and one per
-    Mamba2 layer; serving moves no KV pages through the page kernels."""
+def expected_launches(cfg, decode_steps: int = 0) -> dict:
+    """Kernel launches of one prefill, one per attention layer and one per
+    Mamba2 layer, and of `decode_steps` decode steps that run the model's
+    code, one decode-step launch per Mamba2 layer each; serving moves no KV
+    pages through the page kernels."""
     has_attn = cfg.arch_type != "ssm"
     has_ssm = cfg.arch_type == "ssm" or cfg.hybrid
     return {**NO_LAUNCHES, "flash_attention": cfg.num_layers if has_attn else 0,
-            "ssd_scan": cfg.num_layers if has_ssm else 0}
+            "ssd_scan": cfg.num_layers if has_ssm else 0,
+            "ssm_step": decode_steps * cfg.num_layers if has_ssm else 0}
+
+
+def model_steps(n_new: int) -> int:
+    """The decode steps of a `greedy_decode` call on one card that run the
+    model's code: all n_new - 1 when there are fewer than two; else the
+    eager step and the capture, and the replays run none of it."""
+    return min(max(n_new - 1, 0), 2)
 
 
 class _F32Stack:
@@ -1108,6 +1293,7 @@ def phase_serve(arch: str, batch: int, prompt_len: int, n_new: int, dtype=torch.
                        "decode_tok_s": batch * n_new / (decode_ms / 1e3)}
     # the main path ends here; the checks below launch the kernels again
     main_launches = read_launches()
+    want = expected_launches(cfg, model_steps(n_new))
     if main_launches != want:
         raise AssertionError(f"the {arch} main path launched {main_launches}, expected {want}")
 
@@ -2828,6 +3014,9 @@ def main() -> int:
                   "max_abs_err": jit["kernel_checks"]["drain_max_abs_err"]}),
         _summary("spray_sim", "src/repro_torch/csrc/spray_sim.cu",
                  "src/repro/core/jit_core.py:504", launches["spray_sim"], mc["timing"]),
+        _summary("ssm_step", "src/repro_torch/csrc/ssm_step.cu",
+                 "none: plain jnp (src/repro/models/ssm.py::mamba2_mixer_step)",
+                 launches["ssm_step"], t["ssm_step"]["float32_mamba2"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,7 @@
     python3 kernel_probe.py training         # the train and rl_update phases alone
     python3 kernel_probe.py sharded          # qwen3-moe f32 served, then the sharded and dryrun phases
     python3 kernel_probe.py lint             # the five libraries built, then the lint phase
+    python3 kernel_probe.py ssm_step         # the Mamba2 decode-step kernels: checks, times, launches
 
 A quicker loop than `chip_smoke.py` while a kernel is being changed: each
 mode is its own process, so a kernel that faults in `check` leaves the
@@ -44,7 +45,10 @@ that model under the host mesh and the dryrun phase. `lint` builds and
 loads the five kernel libraries (`chip_smoke.py`'s env phase), then runs
 its lint phase: tentlint --strict over the port's tree, the flags the rule
 reads against those the libraries were built with, and a scenario under
-the runtime sanitizer.
+the runtime sanitizer. `ssm_step` runs `chip_smoke.py`'s checks and timings
+of the Mamba2 decode-step kernels at mamba2-370m's, granite-4.0-h-small's
+and hymba-1.5b's decode widths in float32 and bfloat16, and counts the
+launches of one eager mamba2-370m decode step without and with them.
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ sys.path.insert(0, str(ROOT))
 WGMMA_SOURCES = ("ssd_scan", "flash_attention")
 # every source `build` compiles, with its library's own nvcc flags
 SOURCES = {"ssd_scan": (), "flash_attention": (), "tent_core": ("--fmad=false",),
-           "spray_sim": ("--fmad=false",)}
+           "spray_sim": ("--fmad=false",), "ssm_step": ()}
 
 
 def build() -> int:
@@ -350,12 +354,26 @@ def sharded() -> int:
     return 0
 
 
-
 def lint() -> int:
     import chip_smoke as cs
 
     cs.phase_env()
     cs.phase_lint()
+    return 0
+
+
+def ssm_step() -> int:
+    import torch
+
+    import chip_smoke as cs
+
+    print(cs.nvidia_smi(), flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for key, shape in cs.SSM_STEP_SHAPES.items():
+            case = cs._check_ssm_step(shape, dtype, seed=13)
+            timing = cs._ssm_step_timing(shape, dtype, case)
+            print("ssm_step", key, json.dumps({**case, **timing}), flush=True)
+    print("eager_decode_step", json.dumps(cs._eager_step_launches()), flush=True)
     return 0
 
 
@@ -379,5 +397,7 @@ if __name__ == "__main__":
         sys.exit(sharded())
     if mode == "lint":
         sys.exit(lint())
+    if mode == "ssm_step":
+        sys.exit(ssm_step())
     print(__doc__, file=sys.stderr)
     sys.exit(2)

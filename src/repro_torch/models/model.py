@@ -77,6 +77,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, default_device
+from ..kernels.ssm_step import kernel as ssm_step_kernel
 from ..obs import spans as _spans
 from ..sharding.ctx import constrain, hold_layout, split_dim
 from .attention import (attend_cached, attend_cross, attend_full, attend_latent, cache_update,
@@ -759,7 +760,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
 def _mixer_step(cfg: ModelConfig, p: Params, h: torch.Tensor,
                 cache: Dict[str, torch.Tensor], i: int) -> torch.Tensor:
     """Layer i's Mamba2 decode step; writes its conv buffer and state into
-    `cache` in place."""
+    `cache` in place (where the decode-step kernels ran they wrote them
+    there already, and the copies move no byte)."""
     y, new_buf, new_state = mamba2_mixer_step(
         cfg, p, h, cache["conv_buf"][i], cache["ssm_state"][i])
     cache["conv_buf"][i].copy_(new_buf)
@@ -779,9 +781,17 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
     becomes such a tensor first: RoPE and every cache write read the
     position on the device and no host reads it, so the step can be
     captured in a CUDA graph and replayed as the tensor advances
-    (`serving.greedy_decode`)."""
-    with _spans.span("model.decode_step"):
-        return _decode_step(cfg, params, cache, token, pos)
+    (`serving.greedy_decode`).
+
+    With spans on, the `model.decode_step` span counts
+    `ssm_kernel_layers`: the Mamba2 layers whose step the decode-step
+    kernels took (`kernels.ssm_step`)."""
+    with _spans.span("model.decode_step") as sp:
+        launches = ssm_step_kernel.launches
+        out = _decode_step(cfg, params, cache, token, pos)
+        if sp is not None:
+            sp.counters["ssm_kernel_layers"] = ssm_step_kernel.launches - launches
+        return out
 
 
 def _decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
@@ -822,7 +832,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
     """Run the prompt token by token through `decode_step` to build a decode
     cache of width `max_len` (enc-dec: the encoder runs first and fills
     "enc_k"/"enc_v"). This replay reaches neither the flash-attention
-    kernel nor the SSD-scan kernel."""
+    kernel nor the SSD-scan kernel; with `use_pallas` on a card its Mamba2
+    layers take the decode-step kernels."""
     B, S = tokens.shape
     emb = params["embed"]
     enc_out = _encoder_output(cfg, params, enc_frames)

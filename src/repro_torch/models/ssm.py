@@ -4,10 +4,13 @@ Counterpart of `repro.models.ssm`, with the same cast points.
 `ssd_chunked` is the chunked prefill form (quadratic intra-chunk, linear
 inter-chunk recurrence) and, when `use_pallas` is set, dispatches to the
 SSD-scan kernel (the Hopper kernel on CUDA tensors, its plain version on
-CPU tensors); `ssd_recurrent_ref` is the step-by-step oracle; `ssd_step`
-is the O(1) decode update. The depthwise causal conv is a sum of shifts
-(kernel size 4), as in the reference: `F.conv1d` would go through cuDNN,
-which runs float32 in TF32 by default. The reference's `constrain` calls
+CPU tensors); `ssd_recurrent_ref` is the step-by-step oracle over
+`ssd_step`, the O(1) decode update. The decode mixer's recurrence is
+`kernels.ssm_step` (which holds `ssd_step` and `decay`): when `use_pallas`
+is set, its kernels on CUDA tensors and its plain version on CPU tensors.
+The depthwise causal conv is a sum of shifts (kernel size 4), as in the
+reference: `F.conv1d` would go through cuDNN, which runs float32 in TF32 by
+default. The reference's `constrain` calls
 stand at their counterparts; under a sharding context the SSD-scan kernel
 runs on each rank's local shard through `local_map`, heads over `model`.
 """
@@ -21,6 +24,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..kernels.ssm_step import decay, mamba2_step, mamba2_step_ref, ssd_step
 from ..sharding.ctx import _cur, constrain, rule
 from ..sharding.rules import placements
 from .common import rms_norm
@@ -140,19 +144,6 @@ def ssd_recurrent_ref(
     return torch.stack(ys, dim=1).to(x.dtype), st.to(x.dtype)
 
 
-def ssd_step(
-    state: torch.Tensor,  # (b, h, p, n) fp32
-    x_t: torch.Tensor,  # (b, h, p) -- pre-multiplied by dt
-    a_t: torch.Tensor,  # (b, h)    -- dt * A
-    B_t: torch.Tensor,  # (b, n)
-    C_t: torch.Tensor,  # (b, n)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    state = state * torch.exp(a_t.float())[..., None, None]
-    state = state + torch.einsum("bhp,bn->bhpn", x_t.float(), B_t.float())
-    y = torch.einsum("bhpn,bn->bhp", state, C_t.float())
-    return state, y
-
-
 # ---------------------------------------------------------------------------
 # Full Mamba2 mixer (in_proj -> conv -> SSD -> gate -> norm -> out_proj)
 # ---------------------------------------------------------------------------
@@ -193,11 +184,6 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b)
 
 
-def _decay(dt: torch.Tensor, p: Dict[str, torch.Tensor]):
-    """softplus(dt + dt_bias) and A = -exp(A_log), both fp32."""
-    return F.softplus(dt.float() + p["ssm_dt_bias"].float()), -torch.exp(p["ssm_A_log"].float())
-
-
 def mamba2_mixer(
     cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     *, initial_state: Optional[torch.Tensor] = None,
@@ -217,7 +203,7 @@ def mamba2_mixer(
     xs = xBC[..., :di].reshape(b, s, nh, hd)
     B = xBC[..., di:di + N]
     C = xBC[..., di + N:]
-    dt, A = _decay(dt, p)
+    dt, A = decay(dt, p["ssm_dt_bias"], p["ssm_A_log"])
     a = (dt * A).to(x.dtype)  # (b,s,nh)
     x_dt = xs * dt.to(x.dtype)[..., None]
     y, final_state = ssd_chunked(x_dt, a, B, C, chunk=cfg.ssm_chunk,
@@ -233,24 +219,18 @@ def mamba2_mixer_step(
     conv_buf: torch.Tensor, state: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode mixer. x: (b, 1, D); conv_buf: (b, k-1, conv_dim);
-    state: (b, nh, hd, N) fp32. Returns (y (b,1,D), conv_buf', state')."""
+    state: (b, nh, hd, N) fp32. Returns (y (b,1,D), conv_buf', state').
+
+    The recurrence from the in-projection's output to the gated norm's
+    input is `kernels.ssm_step`: its wrapper with `use_pallas`, else its
+    plain version. On a card the wrapper's kernels update conv_buf and
+    state in place and return them."""
     b = x.shape[0]
-    di, N, nh, hd = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     zxbcdt = x @ p["ssm_in"]
     z, xBC, dt = _split_proj(cfg, zxbcdt)
-    xBC = xBC[:, 0]  # (b, conv_dim)
-    window = torch.cat([conv_buf.to(xBC.dtype), xBC[:, None, :]], dim=1)  # (b, k, c)
-    conv = torch.einsum("bkc,kc->bc", window, p["ssm_conv_w"]) + p["ssm_conv_b"]
-    conv = F.silu(conv)
-    new_buf = window[:, 1:].to(conv_buf.dtype)
-    xs = conv[:, :di].reshape(b, nh, hd)
-    B = conv[:, di:di + N]
-    C = conv[:, di + N:]
-    dt1, A = _decay(dt[:, 0], p)
-    a_t = dt1 * A  # (b, nh)
-    x_dt = xs * dt1.to(xs.dtype)[..., None]
-    state, y = ssd_step(state, x_dt, a_t, B, C)
-    y = y.to(x.dtype) + xs * p["ssm_D"].to(x.dtype)[None, :, None]
-    y = y.reshape(b, 1, di)
+    step = mamba2_step if cfg.use_pallas else mamba2_step_ref
+    y, conv_buf, state = step(xBC[:, 0], dt[:, 0], conv_buf, state, p["ssm_conv_w"],
+                              p["ssm_conv_b"], p["ssm_dt_bias"], p["ssm_A_log"], p["ssm_D"])
+    y = y.reshape(b, 1, cfg.ssm_d_inner)
     y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return y @ p["ssm_out"], new_buf, state
+    return y @ p["ssm_out"], conv_buf, state

@@ -40,7 +40,7 @@ TORCH_FIXTURES = REPO_ROOT / "tests" / "fixtures" / "lint_torch"
 # the rules the port carries over as they are, whose findings must be the
 # reference linter's on the same files
 CARRIED_RULES = ("no-wall-clock", "no-global-rng", "unordered-iter", "hot-path-alloc")
-LIBRARIES = ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim")
+LIBRARIES = ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim", "ssm_step")
 
 
 def lint_fixture(name, rules=None, root=FIXTURES):
@@ -275,7 +275,7 @@ def test_unreadable_flags_are_a_finding(tmp_path):
 
 
 def _port_builds():
-    """The five libraries as the kernel modules load them: the build
+    """The six libraries as the kernel modules load them: the build
     module's flags, then each module's own."""
     from repro_torch.kernels.spray_sim import kernel as sim_kernel
     from repro_torch.kernels.tent_core import kernel as tc_kernel
@@ -334,7 +334,7 @@ def test_chip_smoke_lint_phase_rehearsed(recorded_loads, capsys):
     res = cs.phase_lint()
     assert res["counts"] == {"active": 0, "suppressed": 2, "baselined": 0}
     assert res["stale_baseline"] == 0 and res["parse_errors"] == 0
-    assert res["files"][".cu"] == 5 and res["files"][".cuh"] == 1
+    assert res["files"][".cu"] == 6 and res["files"][".cuh"] == 1
     assert sorted(res["libraries_compared"]) == sorted(LIBRARIES)
     assert res["sanitized"]["violations"] == []
     line = [ln for ln in capsys.readouterr().out.splitlines() if '"phase": "lint"' in ln]
@@ -500,8 +500,8 @@ class TestCli:
         assert report["counts"]["baselined"] == 0
         assert report["stale_baseline"] == [] and report["parse_errors"] == []
         files = report["counts"]["files_scanned"]
-        assert files[".cu"] + files[".cuh"] == 6
-        assert files[".py"] + 6 == report["files_scanned"]
+        assert files[".cu"] + files[".cuh"] == 7
+        assert files[".py"] + 7 == report["files_scanned"]
 
 
 # ---------------------------------------------------------------------------

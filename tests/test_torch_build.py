@@ -45,6 +45,6 @@ def test_shipped_sources_have_their_headers():
     from repro_torch.kernels.tent_core import kernel as tc_kernel
 
     assert (build.CSRC / "wgmma.cuh").exists()
-    for name in ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim"):
+    for name in ("flash_attention", "ssd_scan", "kv_pack", "tent_core", "spray_sim", "ssm_step"):
         assert build.library_path(name, [f"{name}.cu"]).name.startswith(f"{name}-")
     assert tc_kernel.EXTRA_FLAGS == sim_kernel.EXTRA_FLAGS == ("--fmad=false",)

@@ -13,7 +13,8 @@ encoder-decoder); and `greedy_decode` runs every step eagerly, which its
 
 The tests marked `card` run the graph on an NVIDIA card and skip without
 one (`python -m pytest -m card tests/test_torch_decode_graph.py`): replayed
-tokens and decode-written cache entries equal the eager loop's, the
+tokens and decode-written cache entries equal the eager loop's (also with
+the Mamba2 layers' decode-step kernels captured in the graph), the
 counters say one eager step and n_new - 2 replays (none for a one-step
 call), a call leaves no device memory allocated or reserved, and a `decode_step`
 patched in `repro_torch.serving.disagg` is the step that the graph replays.
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 import repro_torch.serving.disagg as disagg
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.ssm_step import kernel as ssm_step_kernel
 from repro_torch.models import decode_step, init_params, prefill_forward
 from repro_torch.models.attention import cache_update
 from repro_torch.obs import spans
@@ -34,6 +36,9 @@ from repro_torch.serving import greedy_decode
 # wraps while it decodes, the capacity-bound MoE and the encoder-decoder
 ARCHS = ["qwen2-0.5b", "mamba2-370m", "granite-4.0-h-small", "deepseek-v3"]
 FAMILIES = ARCHS + ["hymba-1.5b", "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
+# the families with Mamba2 layers, whose steps the decode-step kernels take
+# with `use_pallas` on a card
+SSM_FAMILIES = ["mamba2-370m", "granite-4.0-h-small", "hymba-1.5b"]
 WINDOW = {"hymba-1.5b": 8}
 PROMPT = 12
 
@@ -51,11 +56,13 @@ def _card() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def _served(arch: str, device, extra: int, batch: int = 2, dtype=torch.float32):
+def _served(arch: str, device, extra: int, batch: int = 2, dtype=torch.float32,
+            use_pallas: bool = False):
     """The smoke configuration's params, a prompt's last logits and its
     decode cache with room for `extra` more positions (a window's ring as
     prefill leaves it)."""
-    cfg = get_smoke_config(arch).with_(remat="none", sliding_window=WINDOW.get(arch, 0))
+    cfg = get_smoke_config(arch).with_(remat="none", sliding_window=WINDOW.get(arch, 0),
+                                       use_pallas=use_pallas)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, dtype, device=device)
     tokens = torch.randint(0, cfg.vocab_size, (batch, PROMPT), generator=gen, device=device)
@@ -141,11 +148,17 @@ def _eager_loop(cfg, params, cache, logits, n_new):
 
 @pytest.mark.card
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_replayed_steps_equal_the_eager_loop_on_a_card(recorder, arch, dtype):
+@pytest.mark.parametrize("arch,use_pallas", [(a, False) for a in FAMILIES]
+                         + [(a, True) for a in SSM_FAMILIES],
+                         ids=FAMILIES + [f"{a}-kernels" for a in SSM_FAMILIES])
+def test_replayed_steps_equal_the_eager_loop_on_a_card(recorder, arch, use_pallas, dtype):
+    """With `use_pallas`, the Mamba2 layers' decode-step kernels (ctypes
+    launches on the current stream) run inside the captured graph."""
     dev = _card()
     n_new = 7
-    cfg, params, logits, cache = _served(arch, dev, extra=n_new, dtype=dtype)
+    cfg, params, logits, cache = _served(arch, dev, extra=n_new, dtype=dtype,
+                                         use_pallas=use_pallas)
+    launches = ssm_step_kernel.launches
     eager, graphed = _copy(cache), _copy(cache)
     with torch.no_grad():
         want = _eager_loop(cfg, params, eager, logits, n_new)
@@ -158,7 +171,13 @@ def test_replayed_steps_equal_the_eager_loop_on_a_card(recorder, arch, dtype):
     decode = next(s for s in spans_ if s.name == "serving.decode")
     assert decode.counters == {"graph_steps": n_new - 2, "eager_steps": 1}
     # the eager step and the capture; replays open no span
-    assert [s.name for s in spans_].count("model.decode_step") == 2
+    steps = [s for s in spans_ if s.name == "model.decode_step"]
+    assert len(steps) == 2
+    layers = sum(t == "mamba" for t in cfg.layer_types) if cfg.layer_types else cfg.num_layers
+    kernel_layers = layers if use_pallas else 0
+    assert [s.counters["ssm_kernel_layers"] for s in steps] == [kernel_layers] * 2
+    # the eager loop's n_new - 1 steps, then the graph's eager step and capture
+    assert ssm_step_kernel.launches - launches == kernel_layers * (n_new + 1)
 
     with recorder.request(keep=True) as root:
         with torch.no_grad():
